@@ -4,11 +4,12 @@ The JAX package ``h2o_tpu`` stays the reference; this package mirrors its
 module layout so each port module sits at the same relative path as its
 counterpart, and never imports ``jax`` or anything of ``h2o_tpu``.
 
-Scope of this slice: numeric-feature GBM (bernoulli and gaussian) trained
-and scored end to end — ``Frame``/``Vec`` on torch tensors, quantile bin
-edges and int8 bin codes, the tree engine's level loop over the
-level-histogram kernel (``backend/kernels/hist.py``, CUDA C++ in
-``csrc/level_hist.cu``), and binomial/regression metrics.
+Scope so far: GBM (bernoulli and gaussian) on numeric and categorical
+features, trained and scored end to end — ``Frame``/``Vec`` on torch
+tensors, quantile and per-level bin edges and int8/int16 bin codes, the tree
+engine's level loop over the level-histogram kernel (flat or width-bucketed
+plans, ``backend/kernels/hist.py``, CUDA C++ in ``csrc/level_hist.cu``),
+categorical set splits, and binomial/regression metrics.
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for ``cuda`` on a machine without a GPU raises.

@@ -88,7 +88,8 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build()))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.h2o_level_hist.argtypes = [vp, i32, vp, vp, i64, i32, i32,
-                                           i32, i32, vp, vp, vp, vp, vp]
+                                           i32, i32, vp, vp, i32, i32, vp,
+                                           i64, vp, vp, vp, vp]
             lib.h2o_level_hist.restype = i32
             lib.h2o_cuda_error_string.argtypes = [i32]
             lib.h2o_cuda_error_string.restype = ctypes.c_char_p

@@ -1,27 +1,46 @@
-// Level histogram of the tree engine — the Hopper kernel that replaces the
-// TPU kernel h2o_tpu/backend/kernels/hist.py::_pallas_flat.
+// Level histogram of the tree engine — the Hopper kernel that replaces both
+// TPU kernels of h2o_tpu/backend/kernels/hist.py: _pallas_flat (one bin
+// width for every feature) and _pallas_grouped (the width buckets of
+// engine.plan_hist_groups, all in one launch per level).
 //
-// What it computes (the same function as hist.py::_flat_contrib summed over
-// every row): for each row r and feature f,
-//     hist[f, lc[r], codes[r, f], :] += vv[r, :]
-// with hist (F, n_lv, B, V) float32. Codes are read in their stored width
-// (int8 / int16 / int32) and widened in registers; a code outside [0, B) or
-// a node id outside [0, n_lv) contributes nothing (the one-hot semantics of
-// the reference). NA rows carry code B-1 and land in the last bin.
+// What it computes: for each row r and each feature f of the plan,
+//     c = codes[r, f];  if (c == na_code) c = Bg(f) - 1;
+//     hist_f[lc[r], c, :] += vv[r, :]          for 0 <= c < Bg(f)
+// with hist_f a (n_lv, Bg(f), V) float32 block at its own offset of one
+// output buffer. The flat plan gives every feature Bg = B and na_code = B-1
+// (the remap is then the identity); the grouped plan gives each feature its
+// group's width, its group-local slot in the group's (Fg, n_lv, Bg, V)
+// block, and na_code = nbins_tot - 1, so the global NA bucket lands in the
+// group's last slot (hist.py::_one_group_contrib). Codes are read in place
+// from the (rows, F) matrix in their stored width (int8 / int16 / int32) and
+// sign-extended in registers: a negative code, a code outside [0, Bg) after
+// the remap, or a node id outside [0, n_lv) adds nothing (the one-hot
+// semantics of the reference). The reference's per-group column gather
+// (hist.py:311) exists only because a Pallas body cannot close over index
+// arrays; here a per-feature table carries the column instead.
 //
-// What bounds it: memory traffic, not arithmetic. Per level at the HIGGS
-// shape (11,001,856 rows, 28 int8 features, V = 3) it must read
-// Rl*F code bytes + 4*Rl bytes of lc + 12*Rl bytes of vv, about 484 MB, or
-// about 0.145 ms at 3.35 TB/s; the adds (Rl*F*V = 924M) take far less at
-// the card's integer rate. The design therefore reads every input once and
-// keeps all accumulation on chip: each CTA owns a row chunk and a tile of
-// features, accumulates into a shared-memory tile, and writes only its
-// non-zero cells out once at the end.
+// What bounds it: memory traffic, not arithmetic. Per level it must read
+// Rl*F code bytes + 4*Rl bytes of lc + 4*V*Rl bytes of vv; at the HIGGS
+// shape (11,001,856 rows, 28 int8 features, V = 3) that is about 484 MB, or
+// 0.145 ms at 3.35 TB/s, and at the airlines shape (9 int16 features) about
+// 374 MB, 0.112 ms. The adds (Rl*F*V) take far less at the card's integer
+// rate. The design reads every input once per tile and keeps all
+// accumulation on chip.
 //
-// Why not the TPU's design: the TPU cannot scatter, so the Pallas kernel
-// accumulates through one-hot matrix products and carries the sum
-// sequentially across its grid. Hopper CTAs run in parallel and in no
-// order, and a scatter-add into shared memory is the natural form.
+// Tiling: the host plans "items" — (feature, node range [n0, n1)) pieces of
+// the output — and packs them into tiles of at most ~112 KB of shared memory,
+// balanced by cells, not features (a 301-wide categorical at n_lv = 16 is a
+// 115 KB tile by itself and is split into two node ranges; a 21-bin numeric
+// feature is 8 KB). A CTA owns one row chunk x one tile: it accumulates into
+// a shared-memory tile, skips rows whose node lies outside an item's range,
+// and writes only its non-zero cells out once at the end. Any feature whose
+// one-node slice Bg * V * 8 bytes fits in shared memory can be held.
+//
+// Why not the TPU's design: the TPU cannot scatter, so the Pallas kernels
+// accumulate through one-hot matrix products (or a segment sum, interpreted)
+// and carry the sum sequentially across their grid. Hopper CTAs run in
+// parallel and in no order, and a scatter-add into shared memory is the
+// natural form; the "onehot" and "segsum" modes become the same code.
 //
 // Determinism: the output is bit-identical from run to run. There are no
 // unordered float atomics: every value is converted to 64-bit fixed point
@@ -40,8 +59,14 @@ namespace {
 
 constexpr int kMaxV = 4;
 constexpr int kThreads = 512;
-// shared-memory tile cap per CTA: two CTAs fit on one SM (227 KB each max)
-constexpr int kTileBytes = 112 * 1024;
+// one item of the tile plan: column, first node, end node, width, offset of
+// its first cell in the CTA's shared tile, offset of its first cell in the
+// output (int32 each; the planner keeps every offset below 2^31)
+constexpr int kItemInts = 6;
+// items per tile; the table is staged in shared memory ahead of the cells
+constexpr int kMaxItems = 64;
+constexpr int kItemWords = kMaxItems * kItemInts / 2;  // in 8-byte words
+constexpr int kMaxSmemBytes = 232448;                   // 227 KB per CTA
 
 __global__ void absmax_kernel(const float* __restrict__ vv, long long rows,
                               int V, unsigned int* __restrict__ amax_bits) {
@@ -91,14 +116,21 @@ template <typename CodeT>
 __global__ void __launch_bounds__(kThreads)
 level_hist_kernel(const CodeT* __restrict__ codes, const int* __restrict__ lc,
                   const float* __restrict__ vv, long long rows, int F, int V,
-                  int n_lv, int B, int f_tile,
+                  int n_lv, int na_code, const int* __restrict__ items,
+                  const int* __restrict__ tile_start,
                   const double* __restrict__ scale,
                   unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long tile[];
-  const int f0 = blockIdx.y * f_tile;
-  const int nf = min(f_tile, F - f0);
-  const int stride_f = n_lv * B * V;
-  const int cells = nf * stride_f;
+  extern __shared__ unsigned long long smem[];
+  int* it = reinterpret_cast<int*>(smem);
+  unsigned long long* tile = smem + kItemWords;
+  const int i0 = tile_start[blockIdx.y];
+  const int ni = tile_start[blockIdx.y + 1] - i0;
+  for (int i = threadIdx.x; i < ni * kItemInts; i += blockDim.x)
+    it[i] = items[i0 * kItemInts + i];
+  __syncthreads();
+  // items of a tile sit back to back in shared memory
+  const int* last = it + (ni - 1) * kItemInts;
+  const int cells = last[4] + (last[2] - last[1]) * last[3] * V;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) tile[i] = 0ull;
 
   double sc[kMaxV];
@@ -123,12 +155,15 @@ level_hist_kernel(const CodeT* __restrict__ codes, const int* __restrict__ lc,
       any |= q[v] != 0ll;
     }
     if (!any) continue;  // inactive and padding rows carry zeros
-    const CodeT* row = codes + r * F + f0;
-    unsigned long long* node = tile + l * B * V;
-    for (int f = 0; f < nf; ++f) {
-      const int c = (int)row[f];
-      if ((unsigned)c >= (unsigned)B) continue;
-      unsigned long long* cell = node + f * stride_f + c * V;
+    const CodeT* row = codes + r * F;
+    for (int k = 0; k < ni; ++k) {
+      const int* m = it + k * kItemInts;
+      if (l < m[1] || l >= m[2]) continue;  // node outside the item's range
+      const int bg = m[3];
+      int c = (int)row[m[0]];               // sign-extends int8 / int16
+      if (c == na_code) c = bg - 1;
+      if ((unsigned)c >= (unsigned)bg) continue;
+      unsigned long long* cell = tile + m[4] + ((l - m[1]) * bg + c) * V;
 #pragma unroll
       for (int v = 0; v < kMaxV; ++v)
         if (v < V) atomicAdd(cell + v, (unsigned long long)q[v]);
@@ -136,10 +171,15 @@ level_hist_kernel(const CodeT* __restrict__ codes, const int* __restrict__ lc,
   }
   __syncthreads();
 
-  unsigned long long* out = acc + (long long)f0 * stride_f;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long x = tile[i];
-    if (x != 0ull) atomicAdd(out + i, x);
+  for (int k = 0; k < ni; ++k) {
+    const int* m = it + k * kItemInts;
+    const int n = (m[2] - m[1]) * m[3] * V;
+    const unsigned long long* src = tile + m[4];
+    unsigned long long* out = acc + m[5];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned long long x = src[i];
+      if (x != 0ull) atomicAdd(out + i, x);
+    }
   }
 }
 
@@ -147,6 +187,8 @@ __global__ void finalize_kernel(const long long* __restrict__ acc,
                                 long long n, int V,
                                 const double* __restrict__ scale,
                                 float* __restrict__ out) {
+  // every feature's block is (n_lv, Bg, V) with V innermost, so a cell's
+  // channel is its index mod V
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -157,17 +199,13 @@ __global__ void finalize_kernel(const long long* __restrict__ acc,
 
 template <typename CodeT>
 cudaError_t launch_hist(const void* codes, const int* lc, const float* vv,
-                        long long rows, int F, int V, int n_lv, int B,
-                        const double* scale, unsigned long long* acc,
-                        int num_sms, cudaStream_t stream) {
-  const int per_feature = n_lv * B * V * (int)sizeof(unsigned long long);
-  int f_tile = kTileBytes / per_feature;
-  if (f_tile < 1) f_tile = 1;
-  if (f_tile > F) f_tile = F;
-  const int n_ftiles = (F + f_tile - 1) / f_tile;
-  f_tile = (F + n_ftiles - 1) / n_ftiles;  // balance the tiles
-  const size_t smem = (size_t)f_tile * per_feature;
-
+                        long long rows, int F, int V, int n_lv, int na_code,
+                        const int* items, const int* tile_start, int n_tiles,
+                        int tile_cells, const double* scale,
+                        unsigned long long* acc, int num_sms,
+                        cudaStream_t stream) {
+  const size_t smem = ((size_t)kItemWords + (size_t)tile_cells) * 8;
+  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   auto kern = level_hist_kernel<CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -178,14 +216,14 @@ cudaError_t launch_hist(const void* codes, const int* lc, const float* vv,
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // one wave: every CTA walks one row chunk and flushes its tile once
-  long long chunks = (long long)num_sms * per_sm / n_ftiles;
+  long long chunks = (long long)num_sms * per_sm / n_tiles;
   const long long max_chunks = (rows + kThreads - 1) / kThreads;
   if (chunks > max_chunks) chunks = max_chunks;
   if (chunks < 1) chunks = 1;
-  dim3 grid((unsigned)chunks, (unsigned)n_ftiles);
+  dim3 grid((unsigned)chunks, (unsigned)n_tiles);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), lc, vv, rows, F, V, n_lv, B, f_tile,
-      scale, acc);
+      static_cast<const CodeT*>(codes), lc, vv, rows, F, V, n_lv, na_code,
+      items, tile_start, scale, acc);
   return cudaGetLastError();
 }
 
@@ -197,14 +235,21 @@ const char* h2o_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// acc (F*n_lv*B*V int64) and amax_bits (V uint32) must be zeroed by the
-// caller; scale (V float64) is scratch; out (F*n_lv*B*V float32) is written.
-// Returns 0 or the first CUDA error of the launches.
+// codes (rows, F) int8/int16/int32 (code_bytes 1/2/4), lc (rows,) int32,
+// vv (rows, V) float32 — all on the device. items (n_items, 6) int32 and
+// tile_start (n_tiles + 1,) int32 are the device copy of the host's tile
+// plan, tile_cells its largest tile. acc (n_cells int64) and amax_bits
+// (V uint32) must be zeroed by the caller; scale (V float64) is scratch;
+// out (n_cells float32) is written. Returns 0 or the first CUDA error of
+// the launches.
 int h2o_level_hist(const void* codes, int code_bytes, const int* lc,
                    const float* vv, long long rows, int F, int V, int n_lv,
-                   int B, unsigned long long* acc, unsigned int* amax_bits,
-                   double* scale, float* out, cudaStream_t stream) {
-  if (V < 1 || V > kMaxV || F < 1 || n_lv < 1 || B < 1 || rows < 1)
+                   int na_code, const int* items, const int* tile_start,
+                   int n_tiles, int tile_cells, unsigned long long* acc,
+                   long long n_cells, unsigned int* amax_bits, double* scale,
+                   float* out, cudaStream_t stream) {
+  if (V < 1 || V > kMaxV || F < 1 || n_lv < 1 || rows < 1 || n_tiles < 1 ||
+      n_tiles > 65535 || tile_cells < 1 || n_cells < 1)
     return (int)cudaErrorInvalidValue;
   int dev = 0, num_sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -221,15 +266,18 @@ int h2o_level_hist(const void* codes, int code_bytes, const int* lc,
 
   switch (code_bytes) {
     case 1:
-      err = launch_hist<int8_t>(codes, lc, vv, rows, F, V, n_lv, B, scale, acc,
-                                num_sms, stream);
+      err = launch_hist<int8_t>(codes, lc, vv, rows, F, V, n_lv, na_code,
+                                items, tile_start, n_tiles, tile_cells, scale,
+                                acc, num_sms, stream);
       break;
     case 2:
-      err = launch_hist<int16_t>(codes, lc, vv, rows, F, V, n_lv, B, scale,
+      err = launch_hist<int16_t>(codes, lc, vv, rows, F, V, n_lv, na_code,
+                                 items, tile_start, n_tiles, tile_cells, scale,
                                  acc, num_sms, stream);
       break;
     case 4:
-      err = launch_hist<int32_t>(codes, lc, vv, rows, F, V, n_lv, B, scale,
+      err = launch_hist<int32_t>(codes, lc, vv, rows, F, V, n_lv, na_code,
+                                 items, tile_start, n_tiles, tile_cells, scale,
                                  acc, num_sms, stream);
       break;
     default:
@@ -237,11 +285,10 @@ int h2o_level_hist(const void* codes, int code_bytes, const int* lc,
   }
   if (err != cudaSuccess) return (int)err;
 
-  const long long n = (long long)F * n_lv * B * V;
-  long long fblocks = (n + 255) / 256;
+  long long fblocks = (n_cells + 255) / 256;
   if (fblocks > 8LL * num_sms) fblocks = 8LL * num_sms;
   finalize_kernel<<<(unsigned)fblocks, 256, 0, stream>>>(
-      reinterpret_cast<const long long*>(acc), n, V, scale, out);
+      reinterpret_cast<const long long*>(acc), n_cells, V, scale, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """BinnedView — the packed (plen, F) bin-code matrix the tree engine trains
 on (``h2o_tpu/frame/chunks.py:BinnedView``). Codes are stored in the
 narrowest signed dtype that holds ``0..nbins_tot`` (int8 at the default 20
-bins) and are widened only inside the histogram kernel. The chunk codecs
+bins, int16 once a 300-level categorical widens the bin space) and are
+widened only inside the histogram kernel. The chunk codecs
 wait for a later slice."""
 
 from __future__ import annotations

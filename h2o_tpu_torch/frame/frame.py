@@ -1,7 +1,7 @@
 """Frame — a named collection of Vecs on one device
 (``h2o_tpu/frame/frame.py``). Every column shares the frame's padded length
-and device; ``as_matrix`` stacks columns into a (plen, ncol) float32
-tensor, the model builders' dense handoff."""
+and device; ``Model.adapt_frame`` stacks a model's columns into its dense
+(plen, ncol) float32 matrix."""
 
 from __future__ import annotations
 
@@ -71,11 +71,6 @@ class Frame:
         self._names.append(name)
         self._vecs.append(vec)
         return self
-
-    def as_matrix(self, names: Sequence[str] | None = None) -> torch.Tensor:
-        """(plen, ncol) float32 stack of the named columns."""
-        names = list(names) if names is not None else self._names
-        return torch.stack([self.vec(n).data for n in names], dim=1)
 
     def __repr__(self) -> str:
         return f"Frame({self.nrow}x{len(self._vecs)} {self._names[:8]})"

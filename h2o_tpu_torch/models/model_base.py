@@ -13,6 +13,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..frame.frame import Frame
@@ -67,14 +68,28 @@ class Model:
         raise NotImplementedError
 
     def adapt_frame(self, fr: Frame) -> torch.Tensor:
-        """Training columns of ``fr`` in training order, as a (plen, F)
-        matrix on the frame's device (numeric features only here)."""
+        """adaptTestForTrain analog: training columns of ``fr`` in training
+        order, as a (plen, F) matrix on the frame's device, categorical codes
+        remapped onto the training domain by level name (unseen levels become
+        NaN and follow each node's NA direction)."""
+        cols = []
         for name in self.output.names:
-            if self.output.domains.get(name) is not None:
-                raise NotImplementedError(
-                    "categorical features are not ported yet (ROADMAP "
-                    "Queue 1 item 6)")
-        return fr.as_matrix(self.output.names)
+            v = fr.vec(name)
+            train_dom = self.output.domains.get(name)
+            data = v.data
+            if train_dom is not None and v.domain != train_dom:
+                if not v.domain:
+                    raise ValueError(f"column '{name}' is categorical in "
+                                     f"training but has no domain here")
+                remap = {lvl: i for i, lvl in enumerate(train_dom)}
+                codes = torch.tensor([float(remap.get(lvl, np.nan))
+                                      for lvl in v.domain],
+                                     dtype=torch.float32, device=data.device)
+                ok = ~torch.isnan(data) & (data >= 0) & (data < len(v.domain))
+                idx = torch.where(ok, data, 0.0).to(torch.int64)
+                data = torch.where(ok, codes[idx], torch.nan)
+            cols.append(data)
+        return torch.stack(cols, dim=1)
 
     def predict(self, fr: Frame) -> Frame:
         raw = self.score0(self.adapt_frame(fr))

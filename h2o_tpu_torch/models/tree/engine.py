@@ -1,9 +1,11 @@
-"""Shared tree engine (``h2o_tpu/models/tree/engine.py``), numeric slice.
+"""Shared tree engine (``h2o_tpu/models/tree/engine.py``).
 
 Per tree level: route rows off the previous level's splits (integer
 gathers), accumulate the level histogram over the node window (the
-level-histogram kernel), pick each node's best split, write the level into
-the full-binary-tree arrays (node i -> children 2i+1 / 2i+2). After the last
+level-histogram kernel, flat or per width bucket of `plan_hist_groups`),
+pick each node's best split — an ordinal cut, or for a categorical feature
+under ``use_sets`` a set of levels sent left — and write the level into the
+full-binary-tree arrays (node i -> children 2i+1 / 2i+2). After the last
 level, one per-node accumulation gives Newton leaf values. The loop stays on
 the device: nothing in it reads a value back to the host.
 
@@ -15,6 +17,7 @@ finding keeps the reference's candidate layout and first-maximum tie rule.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -74,9 +77,6 @@ class TreeConfig:
             (self.drf_mode or self.mtries > 0,
              "DRF (ROADMAP Queue 1 items 2 and 6)"),
             (self.nclass > 1, "multinomial responses (ROADMAP Queue 1 item 6)"),
-            (self.hist_groups is not None,
-             "grouped histogram plans (ROADMAP Queue 2 item 2)"),
-            (self.use_sets, "categorical set splits (ROADMAP Queue 1 item 6)"),
             (self.use_monotone or self.use_interaction,
              "monotone / interaction constraints (ROADMAP Queue 1 item 5)"),
             (self.leaf_quantile is not None or self.huber_leaf_alpha is not None,
@@ -117,29 +117,73 @@ def plan_hist_groups(nedges, B_hist: int, block_rows: int,
     return groups, blk
 
 
+def _norm_groups(groups):
+    """Normalize hist_groups entries to (idxs, width, mode): legacy 2-tuples
+    (pre-mode persisted models) accumulate via the one-hot product."""
+    return tuple((g[0], g[1], g[2] if len(g) > 2 else "onehot")
+                 for g in groups)
+
+
 def _build_level_hist(Xb, node, vals, offset: int, n_lv: int, nbins_tot: int,
-                      block: int) -> torch.Tensor:
+                      block: int, groups=None) -> torch.Tensor:
     """hist (F, n_lv, nbins_tot, V) for nodes [offset, offset+n_lv): rows
-    outside the window contribute zeros."""
+    outside the window contribute zeros. With ``groups`` (a width-bucketed
+    plan from `plan_hist_groups`) the kernels layer accumulates each bucket
+    at its own width — one kernel launch for all of them on the card — and
+    the buckets scatter back into the global bin layout."""
     local = node - offset
     active = (local >= 0) & (local < n_lv)
     lc = torch.clamp(local, 0, n_lv - 1).to(torch.int32)
     v = torch.where(active[:, None], vals, 0.0)
-    return hist_kernels.level_hist_blocks(Xb, lc, v, n_lv=n_lv,
-                                          nbins_tot=nbins_tot, block=block)
+    if groups is None:
+        return hist_kernels.level_hist_blocks(Xb, lc, v, n_lv=n_lv,
+                                              nbins_tot=nbins_tot, block=block)
+    groups = _norm_groups(groups)
+    hists = hist_kernels.level_hist_blocks(Xb, lc, v, n_lv=n_lv,
+                                           nbins_tot=nbins_tot, block=block,
+                                           groups=groups)
+    return _scatter_group_hists(hists, groups, Xb.shape[1], n_lv, nbins_tot,
+                                vals.shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _index_tensor(idxs: tuple, device: str) -> torch.Tensor:
+    """A group's feature indices on ``device``, copied there once."""
+    return torch.tensor(idxs, dtype=torch.int64, device=device)
+
+
+def _scatter_group_hists(hists, groups, F: int, n_lv: int, nbins_tot: int,
+                         V: int) -> torch.Tensor:
+    """Per-group accumulators back into the global (F, n_lv, B, V) layout,
+    each group's NA slot (its LAST bin) restored to the global NA bucket;
+    bins a group does not hold stay zero. Plain tensor indexing, shared by
+    the CPU and card paths."""
+    na_global = nbins_tot - 1
+    full = torch.zeros((F, n_lv, nbins_tot, V), dtype=torch.float32,
+                       device=hists[0].device)
+    for (idxs, Bg, _mode), hg in zip(groups, hists):
+        ia = _index_tensor(tuple(int(i) for i in idxs), str(full.device))
+        full[ia, :, :Bg - 1, :] = hg[:, :, :Bg - 1, :]
+        full[ia, :, na_global, :] = hg[:, :, Bg - 1, :]
+    return full
 
 
 def _route_rows_gather(Xb, node, route_args, cfg: TreeConfig) -> torch.Tensor:
     """Advance node ids off one level's splits with integer gathers: the
-    row's code at its node's split feature against the cut, NA rows by the
-    node's NA direction. Integer work end to end, so the ids equal the
-    reference's whatever the formulation."""
-    bf, bb, bnal, do_split, offset, n_lv = route_args
+    row's code at its node's split feature against the cut — or, at a
+    set-split node, the node's direction row read at the row's bin — and NA
+    rows by the node's NA direction. Integer work end to end, so the ids
+    equal the reference's whatever the formulation."""
+    bf, bb, bnal, do_split, catd_lv, isset, offset, n_lv = route_args
     local = node - offset
     active = (local >= 0) & (local < n_lv)
     lc = torch.clamp(local, 0, n_lv - 1).long()
     xv = torch.gather(Xb, 1, bf[lc][:, None])[:, 0].to(torch.int32)
     num_right = xv > bb[lc]
+    if catd_lv is not None:
+        idx = lc * cfg.nbins + torch.clamp(xv, 0, cfg.nbins - 1)
+        cat_right = catd_lv.reshape(-1)[idx] > 0.5
+        num_right = torch.where(isset[lc], cat_right, num_right)
     go_right = torch.where(xv == cfg.nbins, ~bnal[lc], num_right)
     return torch.where(do_split[lc] & active,
                        2 * node + 1 + go_right.to(torch.int32), node)
@@ -172,16 +216,26 @@ def _node_totals(node, vals, n_nodes: int, block: int) -> torch.Tensor:
     return tot
 
 
-def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig):
-    """Best split per node on the numeric ordinal path. hist (F, n_lv, B, 3)
-    -> (gain, feat, bin, nan_left, node weight, left value, right value).
+def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
+                 nedges=None):
+    """Best split per node. hist (F, n_lv, B, 3) -> (gain, feat, bin,
+    nan_left, node weight, left value, right value, direction rows, set
+    flags); the last two are None unless ``cfg.use_sets`` with ``iscat``
+    (F,) bool and ``nedges`` (F,) given.
 
     Candidates are cuts b in 0..nb-2 (left = bins <= b) with the NA bucket
     sent right or left. They are flattened exactly as the reference does —
     (n_lv, F*(nb-1)*2) in [NA right, NA left] order — and the first maximum
     wins (``torch.argmax`` returns the first maximal index), which settles
     the systematic NA-left/NA-right ties of features without NAs and the
-    all -inf candidates of empty nodes the same way on both packages."""
+    all -inf candidates of empty nodes the same way on both packages.
+
+    Set splits (the reference's sorted-prefix search): a categorical
+    feature's bins are ordered by G/H, empty bins keyed +inf so they sort
+    last, and candidate b sends the b+1 first bins of that order left. The
+    order comes from a stable argsort, so ties break by bin index as in
+    ``jnp.argsort(stable=True)``; a second stable argsort gives each bin's
+    rank, which the chosen node's direction row reads back."""
     nb = cfg.nbins
     W, G, H = hist[..., 0], hist[..., 1], hist[..., 2]
     lam = cfg.reg_lambda
@@ -193,6 +247,24 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig):
     cw = torch.cumsum(W[:, :, :nb], dim=2)[:, :, :-1]      # (F, n_lv, nb-1)
     cg = torch.cumsum(G[:, :, :nb], dim=2)[:, :, :-1]
     ch = torch.cumsum(H[:, :, :nb], dim=2)[:, :, :-1]
+    rank = None
+    if cfg.use_sets and iscat is not None:
+        Wr, Gr, Hr = W[:, :, :nb], G[:, :, :nb], H[:, :, :nb]
+        key = torch.where(Wr > 0, Gr / (Hr + 1e-10), torch.inf)
+        order = torch.argsort(key, dim=2, stable=True)
+        rank = torch.argsort(order, dim=2, stable=True)
+        isc = iscat[:, None, None]
+        cw = torch.where(isc, torch.cumsum(torch.gather(Wr, 2, order), 2)
+                         [:, :, :-1], cw)
+        cg = torch.where(isc, torch.cumsum(torch.gather(Gr, 2, order), 2)
+                         [:, :, :-1], cg)
+        ch = torch.where(isc, torch.cumsum(torch.gather(Hr, 2, order), 2)
+                         [:, :, :-1], ch)
+        # a prefix of k = b+1 bins is meaningful up to all real bins left and
+        # NA right (k = nedges + 1, the NA-vs-rest split)
+        cat_ok = (torch.arange(nb - 1, device=hist.device)[None, :]
+                  <= nedges[:, None])
+        edge_ok = torch.where(iscat[:, None], cat_ok, edge_ok)
     wna = W[:, :, nb][:, :, None]
     gna = G[:, :, nb][:, :, None]
     hna = H[:, :, nb][:, :, None]
@@ -240,21 +312,42 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig):
     bf = best // per_f
     bb = ((best % per_f) // 2).to(torch.int32)
     bnal = (best % 2).to(torch.bool)
-    return pick(gains), bf, bb, bnal, Wt, pick(vL), pick(vR)
+    out = (pick(gains), bf, bb, bnal, Wt, pick(vL), pick(vR))
+    if rank is None:
+        return out + (None, None)
+    # direction row per node over real bins (0 = left, 1 = right): at a set
+    # split, bin b goes left iff its rank is inside the chosen prefix; empty
+    # bins follow the NA direction (a level unseen at this node is treated
+    # like missing). Numeric nodes get the ordinal pattern b > cut, which
+    # routing never reads (it keeps the cut test for them).
+    sel = bf[:, None, None].expand(n_lv, 1, nb)
+    rank_sel = torch.gather(rank.permute(1, 0, 2), 1, sel)[:, 0, :]
+    w_sel = torch.gather(W[:, :, :nb].permute(1, 0, 2), 1, sel)[:, 0, :]
+    dir_c = torch.where(w_sel > 0, rank_sel > bb[:, None], ~bnal[:, None])
+    isset = iscat[bf]
+    ordinal = torch.arange(nb, device=hist.device)[None, :] > bb[:, None]
+    catd_lv = torch.where(isset[:, None], dir_c, ordinal).to(torch.float32)
+    return out + (catd_lv, isset)
 
 
-def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig):
+def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig, iscat=None,
+               nedges=None):
     """Grow one tree on the device. Returns (feat (N,), thr (N,), nanL (N,),
-    val (N,), gain (N,), node (Rl,)) — the reference's layout without the
-    set-split table."""
+    val (N,), gain (N,), catd (N, nbins | 1), node (Rl,)) — the reference's
+    layout. ``catd`` holds each node's set-split direction row when
+    ``cfg.use_sets`` and ``iscat``/``nedges`` are given, else one dummy
+    column."""
     Rl, F = Xb.shape
     N = cfg.n_nodes
     B = cfg.nbins + 1
     dev = Xb.device
+    use_sets = cfg.use_sets and iscat is not None
     feat = torch.full((N,), -1, dtype=torch.int32, device=dev)
     thr = torch.zeros((N,), dtype=torch.float32, device=dev)
     nanL = torch.zeros((N,), dtype=torch.bool, device=dev)
     garr = torch.zeros((N,), dtype=torch.float32, device=dev)
+    catd = torch.zeros((N, cfg.nbins if use_sets else 1), dtype=torch.float32,
+                       device=dev)
     node = torch.zeros((Rl,), dtype=torch.int32, device=dev)
     vals3 = torch.stack([w, g, h], dim=1)
     # sampling rates are 1 in this slice: every (feature, node) is a
@@ -269,16 +362,19 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig):
         if route_args is not None:
             node = _route_all(Xb, node, route_args, cfg)
         hist = _build_level_hist(Xb, node, vals3, offset, n_lv, B,
-                                 cfg.block_rows)
-        gain, bf, bb, bnal, Wt, _vL, _vR = _find_splits(
-            hist, cmask[:, :n_lv], edge_ok, cfg)
+                                 cfg.block_rows, groups=cfg.hist_groups)
+        gain, bf, bb, bnal, Wt, _vL, _vR, catd_lv, isset = _find_splits(
+            hist, cmask[:, :n_lv], edge_ok, cfg,
+            iscat if use_sets else None, nedges if use_sets else None)
         do_split = (gain > cfg.min_split_improvement) & (Wt >= 2 * cfg.min_rows)
         sl = slice(offset, offset + n_lv)
         feat[sl] = torch.where(do_split, bf.to(torch.int32), -1)
         thr[sl] = edges[bf, bb.long()]
         nanL[sl] = bnal
         garr[sl] = torch.where(do_split, gain, 0.0)
-        route_args = (bf, bb, bnal, do_split, offset, n_lv)
+        if use_sets:
+            catd[sl] = catd_lv
+        route_args = (bf, bb, bnal, do_split, catd_lv, isset, offset, n_lv)
     if route_args is not None:
         node = _route_all(Xb, node, route_args, cfg)
 
@@ -291,36 +387,43 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig):
     newton = torch.where(tot[:, 0] > 0,
                          -gleaf / (tot[:, 2] + cfg.reg_lambda + 1e-10), 0.0)
     val = newton * cfg.learn_rate
-    return feat, thr, nanL, val, garr, node
+    return feat, thr, nanL, val, garr, catd, node
 
 
 def train_trees(Xb, y, w, f, edges, edge_ok, rates, cfg: TreeConfig,
-                grad_fn):
+                grad_fn, iscat=None, nedges=None):
     """Grow ``len(rates)`` trees — the port's ``make_train_fn``: one Python
     loop over trees, everything on the device, no host sync per level.
 
     ``grad_fn(y, f, w) -> (g, h)``; ``rates`` (T,) float32 per-tree learn
-    rate factors (learn_rate_annealing^i). Returns the carried margin ``f``
-    and the stacked trees (feat, thr, nanL, val, gain), each (T, N)."""
+    rate factors (learn_rate_annealing^i); ``iscat``/``nedges`` (F,) are
+    read only under ``cfg.use_sets``. Returns the carried margin ``f`` and
+    the stacked trees (feat, thr, nanL, val, gain) each (T, N), and catd
+    (T, N, nbins | 1)."""
     trees = []
     for rate in rates:
         g, h = grad_fn(y, f, w)
-        ft, th, nl, vl, ga, node = _grow_tree(Xb, g, h, w, edges, edge_ok, cfg)
+        ft, th, nl, vl, ga, cd, node = _grow_tree(Xb, g, h, w, edges, edge_ok,
+                                                  cfg, iscat, nedges)
         # annealed rate first, then the cap (GBM.java:716-719)
         vl = vl * rate
         if math.isfinite(cfg.max_abs_leafnode_pred):
             vl = torch.clamp(vl, -cfg.max_abs_leafnode_pred,
                              cfg.max_abs_leafnode_pred)
         f = f + vl[node.long()]
-        trees.append((ft, th, nl, vl, ga))
+        trees.append((ft, th, nl, vl, ga, cd))
     return f, tuple(torch.stack(t) for t in zip(*trees))
 
 
-def predict_forest(X, feat, thr, nanL, val, max_depth: int) -> torch.Tensor:
+def predict_forest(X, feat, thr, nanL, val, max_depth: int, catd=None,
+                   iscat=None, nedges=None) -> torch.Tensor:
     """X (R, F) raw values; feat/thr/nanL/val (T, N). Returns the summed
     tree outputs (R,). Each level reads the row's value at its node's split
-    feature with a gather and tests the raw threshold; NA follows the
-    node's NA direction; leaves hold their node."""
+    feature with a gather and tests the raw threshold; at a set-split node
+    (``catd`` (T, N, nb) given and the feature flagged in ``iscat``) the
+    level code maps to its bin, ``min(level, nedges[f])``, and the node's
+    direction row is read there; NA follows the node's NA direction; leaves
+    hold their node."""
     R = X.shape[0]
     out = torch.zeros((R,), dtype=torch.float32, device=X.device)
     for t in range(feat.shape[0]):
@@ -328,8 +431,16 @@ def predict_forest(X, feat, thr, nanL, val, max_depth: int) -> torch.Tensor:
         node = torch.zeros((R,), dtype=torch.int64, device=X.device)
         for _ in range(max_depth):
             f_n = ft[node]
-            x = torch.gather(X, 1, torch.clamp(f_n, min=0)[:, None])[:, 0]
-            go_right = torch.where(torch.isnan(x), ~nl[node], x > th[node])
+            fc = torch.clamp(f_n, min=0)
+            x = torch.gather(X, 1, fc[:, None])[:, 0]
+            num_right = x > th[node]
+            if catd is not None:
+                isset = iscat[fc] & (f_n >= 0)
+                xb = torch.minimum(torch.clamp(torch.nan_to_num(x), min=0.0),
+                                   nedges[fc].to(torch.float32)).long()
+                num_right = torch.where(isset, catd[t][node, xb] > 0.5,
+                                        num_right)
+            go_right = torch.where(torch.isnan(x), ~nl[node], num_right)
             node = torch.where(f_n < 0, node, 2 * node + 1 + go_right.long())
         out = out + vl[node]
     return out

@@ -99,6 +99,56 @@ def test_exact_small_data_binning_matches_the_reference(one_mesh):
     _assert_edges_close(je, te, cols)
 
 
+@pytest.mark.parametrize("nbins_cats", [1024, 16])
+def test_categorical_edges_and_codes_match_the_reference(one_mesh,
+                                                         nbins_cats):
+    """Categorical columns cut once per observed level (cardinality =
+    largest code + 1, not the domain's size), capped by ``nbins_cats`` —
+    levels at or above the cap share the top bin — and skip the exact
+    small-data cuts even under the exact-binning row limit. Edges and codes
+    are integers, so both must be exactly equal; the int16 view packs a
+    300-level column."""
+    rng = np.random.default_rng(7)
+    n = 3000                                       # under the exact limit
+    cols = [rng.integers(0, 300, n).astype(np.float32),   # wide categorical
+            rng.integers(0, 7, n).astype(np.float32),     # narrow categorical
+            rng.integers(0, 12, n).astype(np.float32),    # numeric, exact
+            rng.normal(size=n).astype(np.float32)]        # numeric, sketch
+    cols[0][::13] = np.nan
+    cols[1][cols[1] == 6] = 5                      # domain 7, observed 6
+    is_cat = np.array([True, True, False, False])
+    jv = [JVec.from_numpy(c, mesh=one_mesh) for c in cols]
+    tv = [Vec.from_numpy(c, device="cpu") for c in cols]
+    je = jbinning.compute_bin_edges_cols(jv, is_cat, 20,
+                                         nbins_cats=nbins_cats)
+    te = tbinning.compute_bin_edges_cols(tv, is_cat, 20,
+                                         nbins_cats=nbins_cats)
+    card = min(300, nbins_cats)
+    assert te.shape == (4, max(card - 1, 19))
+    assert np.array_equal(te[0, :card - 1], np.arange(card - 1))
+    assert int((~np.isnan(te[1])).sum()) == 5      # observed levels 0..5
+    assert np.array_equal(np.isnan(je), np.isnan(te))
+    assert np.array_equal(np.nan_to_num(je[:3], nan=-1),
+                          np.nan_to_num(te[:3], nan=-1))
+    _assert_edges_close(je[3:], te[3:], cols[3:])
+    dtype = BinnedView.code_dtype(te.shape[1] + 1)
+    jdt = jnp.int16 if dtype == torch.int16 else jnp.int8
+    for f in range(4):
+        jc = np.asarray(jbinning.bin_column(jv[f].data, jnp.asarray(je[f]),
+                                            dtype=jdt))
+        tc = tbinning.bin_column(tv[f].data, torch.from_numpy(te[f]),
+                                 dtype=dtype).numpy()
+        assert np.array_equal(jc, tc)
+    codes = tbinning.bin_column(tv[0].data, torch.from_numpy(te[0]))
+    lv = torch.from_numpy(np.nan_to_num(cols[0], nan=0)).to(torch.int32)
+    ok = torch.from_numpy(~np.isnan(cols[0]))
+    assert torch.equal(codes[:n][ok], torch.clamp(lv, max=card - 1)[ok])
+    assert int(codes[:n][~ok].min()) == te.shape[1] + 1      # NA bucket
+    bv = BinnedView.build(tv, te)
+    assert bv.matrix.dtype == (torch.int16 if nbins_cats > 127
+                               else torch.int8)
+
+
 def test_sketch_quantiles_match_the_reference():
     X = np.stack(_columns(20_224, seed=5), axis=1)
     X[20_000:] = np.nan                                  # padding rows

@@ -207,7 +207,10 @@ def test_metrics_match_the_reference():
 
 def test_import_loads_no_jax_and_nothing_of_the_reference():
     code = ("import sys, h2o_tpu_torch, h2o_tpu_torch.models.gbm, "
-            "h2o_tpu_torch.backend.kernels.hist; "
+            "h2o_tpu_torch.backend.kernels.hist, "
+            "h2o_tpu_torch.models.tree.engine, "
+            "h2o_tpu_torch.models.tree.binning, "
+            "h2o_tpu_torch.models.model_base, h2o_tpu_torch.frame.chunks; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -220,16 +223,14 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
     dict(sample_rate=0.5), dict(col_sample_rate=0.7),
     dict(col_sample_rate_per_tree=0.8), dict(nfolds=3),
     dict(monotone_constraints={"x0": 1}), dict(histogram_type="Random"),
-    dict(distribution="poisson"), "categorical", "multinomial",
+    dict(distribution="poisson"), dict(col_sample_rate_change_per_level=0.9),
+    "multinomial",
 ])
 def test_out_of_slice_options_raise(change):
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
     kw = dict(KW, ntrees=1)
-    if change == "categorical":
-        fr.add("c", Vec.from_numpy(np.arange(2000) % 3, domain=["a", "b", "c"],
-                                   device="cpu"))
-    elif change == "multinomial":
+    if change == "multinomial":
         fr.add("y3", Vec.from_numpy(np.arange(2000) % 3,
                                     domain=["a", "b", "c"], device="cpu"))
         kw["response_column"] = "y3"
