@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives two
-paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan) and the
-airlines-shaped categorical GBM (grouped plan, set splits). In order:
+Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives three
+paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan), the
+airlines-shaped categorical GBM (grouped plan, set splits) and the
+HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -39,7 +40,30 @@ airlines-shaped categorical GBM (grouped plan, set splits). In order:
    finite predictions;
 6. ``airlines_card_vs_cpu``: that GBM on 1M rows x 5 trees on the card and
    on the CPU: equal split features, NA directions, set-split tables and
-   split bins, leaf values and predictions within 1e-5.
+   split bins, leaf values and predictions within 1e-5;
+7. ``gram``: holds the weighted Gram kernel against its plain version (the
+   reference's balanced row blocks, ascending) at GLM's HIGGS design
+   (11,001,856 rows x 29 columns, with z) and at the airlines one-hot width
+   (1,048,576 x 690, with z): two launches bit-identical, every entry
+   within 1e-5 of its absolute mass (the plain Gram of |X|, |W|, |z|);
+   checks the z = None mask form (W in {0, 1}) at the HIGGS design, and
+   that the kernel computes in float32, not TF32 (``gram_tf32_probe``:
+   within 1e-5 of the float64 Gram on operands TF32 would move by 1e-4);
+   times the kernel, the plain version, one ``torch.mm`` of precomputed
+   (W o X)^T and [X | z] (TF32 off; a yardstick the port never calls) and
+   the bound (the bytes, or the operations of G's triangle and b);
+8. ``glm_train``: ``bench.py``'s ``glm_irlsm`` leg on the HIGGS frame —
+   binomial, IRLSM, seed 42, every other parameter at its default — and
+   requires one Gram launch per IRLS iteration, no histogram launch, a
+   finite training AUC above 0.6, residual below null deviance, finite
+   coefficients and predictions;
+9. ``glm_cod_train``: the same with ``solver="COORDINATE_DESCENT"``;
+10. ``glm_card_vs_cpu``: two fits at 1M rows on the card and on the CPU —
+    IRLSM with ``lambda_search`` and COD with ``lambda_=1e-3`` —
+    coefficients within 1e-4 x max(1, |beta|), residual deviance within a
+    relative 1e-5, predictions within 1e-4 (a one-iteration difference in
+    where IRLS stops moves beta by up to ``beta_epsilon``); the card's
+    lambda search makes iterations + 1 Gram launches (its lambda_max pass).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Any failed phase
@@ -64,6 +88,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 REAL_TOL = 1e-4                # real channels: |kernel - plain| <= this x cell |mass|
 CPU_TOL = 1e-5                 # card vs CPU: leaf values and predictions
+GRAM_MAIN = (11_001_856, 29)   # GLM's HIGGS design: padded rows x (28 + intercept)
+GRAM_WIDE = (1_048_576, 690)   # airlines drop-first one-hot width + intercept
+GRAM_TOL = 1e-5                # Gram entry vs plain: <= this x entry |mass|
+GLM_COEF_TOL = 1e-4            # card vs CPU: |dbeta| <= this x max(1, |beta|)
+GLM_DEV_TOL = 1e-5             # card vs CPU: residual deviance, relative
+GLM_PRED_TOL = 1e-4            # card vs CPU: predictions
 
 
 def _higgs_cols(nrow: int, seed: int = 42):
@@ -153,6 +183,15 @@ def _gbm(fr, ntrees: int, response: str = "response"):
                              seed=42)).train_model()
 
 
+def _glm(fr, **kw):
+    """``bench.py:bench_glm``'s fit: binomial, seed 42, IRLSM unless
+    ``solver`` says otherwise, every other parameter at its default."""
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=fr, response_column="response",
+                             family="binomial", seed=42, **kw)).train_model()
+
+
 def _cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -228,22 +267,20 @@ def phase_kernel(dev) -> dict:
                       "bound_ms")}
 
 
-def phase_train(dev) -> int:
-    """The flagship GBM end to end; returns the kernel launches it made."""
+def phase_train(dev, fr) -> int:
+    """The flagship GBM end to end on the HIGGS frame; returns the kernel
+    launches it made."""
     import torch
 
-    from h2o_tpu_torch.backend.kernels import hist
+    from h2o_tpu_torch.backend.kernels import gram, hist
 
-    t0 = time.perf_counter()
-    fr = _higgs_frame(HIGGS_ROWS, dev)
-    print(f"higgs frame {HIGGS_ROWS}x{HIGGS_F}: "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _gbm(fr, ntrees=10)     # train_model synchronises the card
     train_s = time.perf_counter() - t0
     launches, grouped = hist.LAUNCHES, hist.GROUPED_LAUNCHES
+    _check(gram.GRAM_LAUNCHES == 0, "the GBM launched the Gram kernel")
     m = model.output.training_metrics
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -444,19 +481,21 @@ def phase_airlines_train(dev) -> int:
     """The airlines-shaped GBM end to end; returns its grouped launches."""
     import torch
 
-    from h2o_tpu_torch.backend.kernels import hist
+    from h2o_tpu_torch.backend.kernels import gram, hist
 
     t0 = time.perf_counter()
     fr = _airlines_frame(AIRLINES_ROWS, dev)
     print(f"airlines frame {AIRLINES_ROWS}x9: "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _gbm(fr, ntrees=10, response="IsDepDelayed")
     train_s = time.perf_counter() - t0
     launches, flat = hist.GROUPED_LAUNCHES, hist.LAUNCHES
+    _check(gram.GRAM_LAUNCHES == 0, "the airlines GBM launched the Gram "
+                                    "kernel")
     m = model.output.training_metrics
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -512,6 +551,215 @@ def phase_airlines_card_vs_cpu(dev) -> None:
            f"{pred_err}")
 
 
+def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
+    """One Gram shape with z: kernel vs plain checks and the four timings.
+    W in [0, 0.25) like a binomial IRLS weight."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram
+
+    X = torch.randn((R, P), generator=g, device=dev)
+    W = torch.rand((R,), generator=g, device=dev) * 0.25
+    z = torch.randn((R,), generator=g, device=dev)
+    G1, b1 = gram._cuda_gram(X, W, z)
+    G2, b2 = gram._cuda_gram(X, W, z)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    Gp, bp = gram._plain_gram(X, W, z)
+    stop.record()
+    Gm, bm = gram._plain_gram(X.abs(), W, z.abs())
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    _check(torch.equal(G1, G2) and torch.equal(b1, b2),
+           f"gram {R}x{P}: two launches differ")
+    err = max(float((G1 - Gp).abs().max()), float((b1 - bp).abs().max()))
+    rel = max(float(((G1 - Gp).abs() / (Gm + 1e-30)).max()),
+              float(((b1 - bp).abs() / (bm + 1e-30)).max()))
+    _check(rel <= GRAM_TOL, f"gram {R}x{P}: off by {rel:.3g} of the entry "
+                            f"mass (limit {GRAM_TOL})")
+    del Gp, bp, Gm, bm
+    kernel_ms = _cuda_ms(lambda: gram._cuda_gram(X, W, z), reps)
+    # yardstick: one torch.mm of precomputed (W o X)^T and [X | z]
+    A = X * W[:, None]
+    B = torch.cat([X, z[:, None]], dim=1)
+    library_ms = _cuda_ms(lambda: torch.mm(A.T, B), reps)
+    del A, B
+    nbytes = R * P * 4 + 2 * R * 4 + (P * P + P) * 4
+    flops = 2 * R * (P * (P + 1) // 2 + P)   # G is symmetric: its triangle, and b
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return dict(rows=R, cols=P, max_abs_err=err, max_rel_mass=rel,
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                tile_chunks_rows=list(gram._gram_plan(R, P, True)))
+
+
+def gram_tf32_probe(dev, R: int, P: int, g) -> tuple[float, float]:
+    """Inputs on which a Gram whose operands were rounded to TF32 (10
+    mantissa bits) fails and the float32 Gram does not: X and z in [1, 2)
+    carry a 2^-12 term, a quarter of TF32's step there, which truncation and
+    rounding to nearest both drop, so each TF32 operand is low by 1.2e-4 to
+    2.4e-4 of itself; W in {2^-2, 2^-3, 2^-4} keeps W o X on X's grid. Every
+    term is positive, so each entry is its own mass. Returns the kernel's
+    largest error against the float64 Gram, over the entry, and the same
+    for the float64 product of the TF32-truncated operands."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram
+
+    def on_grid(shape):
+        m = torch.randint(0, 1024, shape, generator=g, device=dev)
+        return 1.0 + m.to(torch.float32) * 2.0 ** -10 + 2.0 ** -12
+
+    def tf32(t):        # keep 10 of float32's 23 mantissa bits
+        return (t.view(torch.int32) & ~0x1FFF).view(torch.float32).double()
+
+    X, z = on_grid((R, P)), on_grid((R,))
+    W = 2.0 ** -torch.randint(2, 5, (R,), generator=g,
+                              device=dev).to(torch.float32)
+    G, b = gram._cuda_gram(X, W, z)
+    A = X.double() * W.double()[:, None]
+    G64, b64 = A.T @ X.double(), A.T @ z.double()
+    At = tf32(X * W[:, None])
+    Gt, bt = At.T @ tf32(X), At.T @ tf32(z)
+
+    def rel(Gx, bx):
+        return max(float(((Gx.double() - G64).abs() / G64).max()),
+                   float(((bx.double() - b64).abs() / b64).max()))
+    return rel(G, b), rel(Gt, bt)
+
+
+def phase_gram(dev) -> dict:
+    """The Gram kernel against its plain version at GLM's HIGGS design and
+    at the airlines one-hot width, plus the z = None mask form; returns the
+    main-path case's numbers (max_abs_err over all checks)."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    main = _gram_case(dev, *GRAM_MAIN, g, reps=20)
+    print("gram", json.dumps(main), flush=True)
+    # z = None with a 0/1 mask (PCA's form): G only, b None
+    R, P = GRAM_MAIN
+    X = torch.randn((R, P), generator=g, device=dev)
+    W = (torch.rand((R,), generator=g, device=dev) < 0.7).to(torch.float32)
+    G1, b1 = gram._cuda_gram(X, W, None)
+    G2, _ = gram._cuda_gram(X, W, None)
+    Gp, _ = gram._plain_gram(X, W, None)
+    Gm, _ = gram._plain_gram(X.abs(), W, None)
+    torch.cuda.synchronize()
+    nz_rel = float(((G1 - Gp).abs() / (Gm + 1e-30)).max())
+    _check(b1 is None and torch.equal(G1, G2), "gram z=None: b or bits")
+    _check(nz_rel <= GRAM_TOL, f"gram z=None: off by {nz_rel:.3g} of the "
+                               f"entry mass (limit {GRAM_TOL})")
+    nz_err = float((G1 - Gp).abs().max())
+    print("gram_no_z", json.dumps(dict(rows=R, cols=P, max_abs_err=nz_err,
+                                       max_rel_mass=nz_rel)), flush=True)
+    del X, W, G1, G2, Gp, Gm
+    # float32, not TF32: on operands TF32 cannot hold the kernel stays
+    # within GRAM_TOL of the float64 Gram and TF32 falls far outside it
+    f32_rel, tf32_rel = gram_tf32_probe(dev, 1 << 20, P, g)
+    print("gram_f32_probe", json.dumps(dict(rows=1 << 20, cols=P,
+                                            kernel_rel=f32_rel,
+                                            tf32_rel=tf32_rel)), flush=True)
+    _check(f32_rel <= GRAM_TOL < 10 * GRAM_TOL <= tf32_rel,
+           f"gram f32 probe: kernel off by {f32_rel:.3g} of the float64 "
+           f"Gram, TF32 operands by {tf32_rel:.3g} (limit {GRAM_TOL})")
+    torch.cuda.empty_cache()
+    wide = _gram_case(dev, *GRAM_WIDE, g, reps=5)
+    print("gram_wide", json.dumps(wide), flush=True)
+    torch.cuda.empty_cache()
+    return dict(main, max_abs_err=max(main["max_abs_err"], nz_err,
+                                      wide["max_abs_err"]))
+
+
+def _glm_train(dev, fr, what: str, **kw) -> int:
+    """One GLM fit of ``bench.py``'s settings on the HIGGS frame and its
+    checks; returns its Gram launches."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    gram.GRAM_LAUNCHES = hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _glm(fr, **kw)          # train_model synchronises the card
+    train_s = time.perf_counter() - t0
+    launches = gram.GRAM_LAUNCHES
+    hist_launches = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+    m = model.output.training_metrics
+    iters = model.output.scoring_history[-1]["iterations"]
+    t0 = time.perf_counter()
+    p1 = model.predict(fr).vec("ps").data[:fr.nrow]
+    finite = bool(torch.isfinite(p1).all())
+    predict_s = time.perf_counter() - t0
+    print(what, json.dumps(dict(
+        rows=fr.nrow, solver=model.params.solver, train_s=train_s,
+        predict_s=predict_s, iterations=iters, gram_launches=launches,
+        hist_launches=hist_launches, auc=m.auc, logloss=m.logloss,
+        residual_deviance=m.residual_deviance,
+        null_deviance=m.null_deviance,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)),
+        flush=True)
+    _check(launches == iters and hist_launches == 0,
+           f"{what}: {launches} Gram launches for {iters} iterations, "
+           f"{hist_launches} histogram launches")
+    _check(bool(np.isfinite(m.auc)) and m.auc > 0.6, f"{what}: AUC {m.auc}")
+    _check(m.residual_deviance < m.null_deviance,
+           f"{what}: residual deviance {m.residual_deviance} not below the "
+           f"null deviance {m.null_deviance}")
+    _check(bool(np.isfinite(model.beta).all()), f"{what}: coefficients")
+    _check(finite and p1.shape == (fr.nrow,), f"{what}: predictions")
+    return launches
+
+
+def phase_glm_card_vs_cpu(dev) -> None:
+    """IRLSM with lambda search and COD with lambda 1e-3 at 1M rows, on the
+    card and on the CPU."""
+    from h2o_tpu_torch.backend.kernels import gram
+
+    rows = 1_000_000
+    frames = {d: _higgs_frame(rows, d) for d in (dev, "cpu")}
+    for what, kw in (("irlsm_lambda_search", dict(lambda_search=True)),
+                     ("cod", dict(solver="COORDINATE_DESCENT",
+                                  lambda_=1e-3))):
+        fits = {}
+        for d, fr in frames.items():
+            t0 = time.perf_counter()
+            gram.GRAM_LAUNCHES = 0
+            m = _glm(fr, **kw)
+            fits[d] = (m, gram.GRAM_LAUNCHES,
+                       m.predict(fr).vec("ps").data[:rows].cpu().numpy(),
+                       time.perf_counter() - t0)
+        (a, la, pa, ta), (b, lb, pb, tb) = fits[dev], fits["cpu"]
+        ia = a.output.scoring_history[-1]["iterations"]
+        ib = b.output.scoring_history[-1]["iterations"]
+        coef = float(np.max(np.abs(a.beta - b.beta)
+                            / np.maximum(1.0, np.abs(b.beta))))
+        ra = a.output.training_metrics.residual_deviance
+        rb = b.output.training_metrics.residual_deviance
+        dev_rel = abs(ra - rb) / abs(rb)
+        pred = float(np.abs(pa - pb).max())
+        print("glm_card_vs_cpu", json.dumps(dict(
+            fit=what, rows=rows, iterations_card=ia, iterations_cpu=ib,
+            gram_launches_card=la, lambda_card=a.output.scoring_history[-1][
+                "lambda"], lambda_cpu=b.output.scoring_history[-1]["lambda"],
+            coef_max_rel_err=coef, dev_rel_err=dev_rel, pred_max_abs_err=pred,
+            auc_card=a.output.training_metrics.auc,
+            auc_cpu=b.output.training_metrics.auc, card_s=ta, cpu_s=tb)),
+            flush=True)
+        _check(coef <= GLM_COEF_TOL, f"glm {what}: coefficients off by "
+                                     f"{coef:.3g} (limit {GLM_COEF_TOL})")
+        _check(dev_rel <= GLM_DEV_TOL, f"glm {what}: residual deviance off "
+                                       f"by {dev_rel:.3g} relative")
+        _check(pred <= GLM_PRED_TOL, f"glm {what}: predictions off by {pred}")
+        want = ia + 1 if kw.get("lambda_search") else ia
+        _check(la == want, f"glm {what}: {la} Gram launches on the card, "
+                           f"want {want}")
+
+
 def main() -> int:
     import torch
 
@@ -544,24 +792,40 @@ def main() -> int:
         phases[name] = time.perf_counter() - t0
         return out
 
+    t0 = time.perf_counter()
+    higgs = _higgs_frame(HIGGS_ROWS, dev)
+    print(f"higgs frame {HIGGS_ROWS}x{HIGGS_F}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     flat = run("level_hist", phase_kernel)
-    launches = run("train", phase_train)
+    launches = run("train", lambda d: phase_train(d, higgs))
     run("card_vs_cpu", phase_card_vs_cpu)
     grouped = run("level_hist_grouped", phase_grouped_kernel)
     grouped_launches = run("airlines_train", phase_airlines_train)
     run("airlines_card_vs_cpu", phase_airlines_card_vs_cpu)
+    gram_nums = run("gram", phase_gram)
+    gram_launches = run("glm_train", lambda d: _glm_train(d, higgs,
+                                                          "glm_train"))
+    run("glm_cod_train", lambda d: _glm_train(
+        d, higgs, "glm_cod_train", solver="COORDINATE_DESCENT"))
+    del higgs
+    run("glm_card_vs_cpu", phase_glm_card_vs_cpu)
     print("phase_s", json.dumps(phases), flush=True)
-    src = "h2o_tpu_torch/csrc/level_hist.cu"
+    hist_src = "h2o_tpu_torch/csrc/level_hist.cu"
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=n, max_abs_err=nums["max_abs_err"], ms=nums["ms"],
              plain_ms=nums["plain_ms"], bound_ms=nums["bound_ms"],
-             bound_by="bytes", library_ms=nums["library_ms"])
-        for name, replaces, n, nums in (
-            ("level_hist", "h2o_tpu/backend/kernels/hist.py:158", launches,
-             flat),
-            ("level_hist_grouped", "h2o_tpu/backend/kernels/hist.py:181",
-             grouped_launches, grouped))]}), flush=True)
+             bound_by=nums.get("bound_by", "bytes"),
+             library_ms=nums["library_ms"])
+        for name, src, replaces, n, nums in (
+            ("level_hist", hist_src, "h2o_tpu/backend/kernels/hist.py:158",
+             launches, flat),
+            ("level_hist_grouped", hist_src,
+             "h2o_tpu/backend/kernels/hist.py:181", grouped_launches,
+             grouped),
+            ("gram", "h2o_tpu_torch/csrc/gram.cu",
+             "h2o_tpu/backend/kernels/gram.py:79", gram_launches,
+             gram_nums))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,12 @@ features, trained and scored end to end — ``Frame``/``Vec`` on torch
 tensors, quantile and per-level bin edges and int8/int16 bin codes, the tree
 engine's level loop over the level-histogram kernel (flat or width-bucketed
 plans, ``backend/kernels/hist.py``, CUDA C++ in ``csrc/level_hist.cu``),
-categorical set splits, and binomial/regression metrics.
+categorical set splits, and binomial/regression metrics; GLM (gaussian,
+binomial, quasibinomial, poisson, gamma, tweedie, negativebinomial) through
+IRLSM or coordinate descent, with or without lambda search — ``DataInfo``'s
+design expansion (``models/datainfo.py``) and the IRLS loop over the weighted
+Gram kernel (``backend/kernels/gram.py``, CUDA C++ in ``csrc/gram.cu``), the
+small solves on the host.
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for ``cuda`` on a machine without a GPU raises.
@@ -20,5 +25,7 @@ for a CPU tensor, the hand-written kernel for a CUDA tensor.
 from .frame.frame import Frame
 from .frame.vec import Vec
 from .models.gbm import GBM, GBMModel, GBMParameters
+from .models.glm import GLM, GLMModel, GLMParameters
 
-__all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters"]
+__all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters", "GLM",
+           "GLMModel", "GLMParameters"]

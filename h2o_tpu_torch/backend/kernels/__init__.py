@@ -6,6 +6,9 @@ oracle the card is checked against) with a wrapper that dispatches on the
 tensor's device: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises. There is no backend switch and no fallback.
 
+Two kernels so far: the level histogram (``hist.py`` -> ``csrc/level_hist.cu``)
+and the weighted Gram (``gram.py`` -> ``csrc/gram.cu``).
+
 CUDA sources live in ``h2o_tpu_torch/csrc/``. They are compiled at first use
 with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, bound through ctypes, and rebuilt when a source's content
@@ -91,6 +94,9 @@ def load_library() -> ctypes.CDLL:
                                            i32, i32, vp, vp, i32, i32, vp,
                                            i64, vp, vp, vp, vp]
             lib.h2o_level_hist.restype = i32
+            lib.h2o_gram.argtypes = [vp, vp, vp, i64, i32, i32, i32, i64, vp,
+                                     vp, vp, vp]
+            lib.h2o_gram.restype = i32
             lib.h2o_cuda_error_string.argtypes = [i32]
             lib.h2o_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

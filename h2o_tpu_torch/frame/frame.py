@@ -65,6 +65,13 @@ class Frame:
     def find(self, name: str) -> int:
         return self._names.index(name) if name in self._names else -1
 
+    def ensure_rollups(self, names: Sequence[str] | None = None) -> None:
+        """Compute every missing column rollup. The reference batches them
+        into fused multi-column passes over its mesh; on one device each
+        column's one pass is filled in turn (the values are the same)."""
+        for n in (names if names is not None else self._names):
+            self.vec(n).rollups()
+
     def add(self, name: str, vec: Vec) -> "Frame":
         if self._vecs:
             self._check_aligned(vec)

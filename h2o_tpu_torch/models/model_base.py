@@ -52,6 +52,7 @@ class ModelOutput:
         self.training_metrics = None
         self.validation_metrics = None
         self.scoring_history: list[dict] = []
+        self.variable_importances: dict | None = None
         self.run_time_ms = 0
 
 
@@ -121,6 +122,7 @@ class ModelBuilder:
 
     algo_name = "base"
     _constant_response_check = False  # True in tree builders (SharedTree)
+    _offset_supported = False         # True in builders that take an offset
 
     def __init__(self, params: Parameters):
         self.params = params
@@ -136,7 +138,7 @@ class ModelBuilder:
             raise ValueError(f"response_column '{p.response_column}' not in frame")
         for bad, what in ((p.nfolds >= 2 or p.fold_column,
                            "cross-validation (ROADMAP Queue 1 item 6)"),
-                          (p.offset_column,
+                          (p.offset_column and not self._offset_supported,
                            "offset columns (ROADMAP Queue 1 item 6)"),
                           (p.checkpoint is not None,
                            "checkpoints (ROADMAP Queue 1 item 12)"),

@@ -1,5 +1,6 @@
-"""Card tests of the port's CUDA kernel against its plain versions, through
-the flat and the grouped wrapper.
+"""Card tests of the port's CUDA kernels against their plain versions: the
+level histogram through its flat and grouped wrappers, the weighted Gram,
+and a small GLM fit on the card against the same fit on the CPU.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -9,14 +10,18 @@ so the repo's conftest must not load):
 Integer-valued channels must match the plain version exactly (sums of
 small integers are exact in f32 in any order); real channels within 1e-4
 of each cell's absolute mass, the plain version's worst f32 rounding over
-its ascending row blocks being well below that.
+its ascending row blocks being well below that. Gram entries within 1e-5 of
+each entry's absolute mass (the plain Gram of |X|, |W|, |z|): the kernel
+and the plain version add the same products in other orders; on operands
+TF32 cannot hold, within 1e-5 of the float64 Gram, which TF32 operands miss
+by more than 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from h2o_tpu_torch.backend.kernels import hist
+from h2o_tpu_torch.backend.kernels import gram, hist
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +170,110 @@ def test_one_group_call_is_the_grouped_kernel(dev):
     torch.cuda.synchronize()
     assert hist.GROUPED_LAUNCHES == before + 2
     assert torch.equal(one, both[0])
+
+
+GRAM_TOL = 1e-5
+
+
+def _gram_inputs(R, P, dev, seed=2, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:
+        X = rng.integers(-3, 4, (R, P)).astype(np.float32)
+        W = rng.integers(0, 3, R).astype(np.float32)
+        z = rng.integers(-2, 3, R).astype(np.float32)
+    else:
+        X = rng.normal(size=(R, P)).astype(np.float32)
+        W = rng.random(R).astype(np.float32)
+        z = rng.normal(size=R).astype(np.float32)
+    return (torch.from_numpy(X).to(dev), torch.from_numpy(W).to(dev),
+            torch.from_numpy(z).to(dev))
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("R,P", [(1000, 1), (70_001, 29), (20_011, 130),
+                                 (9_999, 690)])
+def test_gram_kernel_matches_plain(dev, R, P, with_z):
+    """Ragged R against the kernel's chunk and staging sizes, both tile
+    widths (P + 1 <= 32 and above), with and without z; two launches are
+    bit-identical."""
+    X, W, z = _gram_inputs(R, P, dev)
+    z = z if with_z else None
+    before = gram.GRAM_LAUNCHES
+    G1, b1 = gram.gram_accumulate(X, W, z)
+    G2, b2 = gram.gram_accumulate(X, W, z)
+    assert gram.GRAM_LAUNCHES == before + 2
+    Gp, bp = gram._torch_gram(X, W, z, R)      # one block: R * P <= 2^25
+    Gm, bm = gram._torch_gram(X.abs(), W.abs(), None if z is None
+                              else z.abs(), R)
+    torch.cuda.synchronize()
+    assert G1.shape == (P, P) and torch.equal(G1, G2)
+    assert bool(((G1 - Gp).abs() <= GRAM_TOL * Gm).all())
+    if with_z:
+        assert b1.shape == (P,) and torch.equal(b1, b2)
+        assert bool(((b1 - bp).abs() <= GRAM_TOL * bm).all())
+    else:
+        assert b1 is None
+
+
+def test_gram_kernel_is_exact_on_integer_values(dev):
+    X, W, z = _gram_inputs(50_000, 33, dev, integer=True)
+    G, b = gram._cuda_gram(X, W, z)
+    Gp, bp = gram._torch_gram(X, W, z, 50_000)
+    torch.cuda.synchronize()
+    assert torch.equal(G, Gp) and torch.equal(b, bp)
+
+
+@pytest.mark.parametrize("R,P", [(70_001, 29), (20_011, 130)])
+def test_gram_kernel_computes_in_float32_not_tf32(dev, R, P):
+    """On operands that TF32 cannot hold (``chip_smoke.gram_tf32_probe``),
+    both tile widths stay within 1e-5 of the float64 Gram, while the same
+    product over TF32-truncated operands is off by more than 1e-4: a
+    kernel that fed the tensor cores TF32 would fail here."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    f32_rel, tf32_rel = cs.gram_tf32_probe(dev, R, P, g)
+    assert f32_rel <= GRAM_TOL
+    assert tf32_rel >= 10 * GRAM_TOL
+
+
+def test_gram_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    X, W, z = _gram_inputs(1024, 5, dev)
+    with pytest.raises(TypeError):
+        gram._cuda_gram(X.double(), W, z)
+    with pytest.raises(TypeError):
+        gram._cuda_gram(X, W.half(), z)
+    with pytest.raises(ValueError):
+        gram._cuda_gram(X, W.cpu(), z)
+    with pytest.raises(ValueError):
+        gram._cuda_gram(X, W, z.cpu())
+    with pytest.raises(ValueError):
+        gram._cuda_gram(X.T.contiguous().T, W, z)
+    with pytest.raises(ValueError):
+        gram._cuda_gram(X, W[:-1].contiguous(), z)
+
+
+def test_small_glm_on_the_card_matches_the_cpu(dev):
+    """The binomial lambda-search fit of ``chip_smoke.py``'s
+    ``glm_card_vs_cpu`` at 20k rows: coefficients within 1e-4 x max(1,
+    |beta|), residual deviance within a relative 1e-5, predictions within
+    1e-4; every Gram pass on the card (iterations + the lambda_max pass)
+    goes through the kernel."""
+    import chip_smoke as cs
+
+    fits = {}
+    for d in (dev, "cpu"):
+        fr = cs._higgs_frame(20_000, d)
+        before = gram.GRAM_LAUNCHES
+        m = cs._glm(fr, lambda_search=True)
+        fits[d] = (m, gram.GRAM_LAUNCHES - before,
+                   m.predict(fr).vec("ps").to_numpy())
+    (a, la, pa), (b, lb, pb) = fits[dev], fits["cpu"]
+    it = a.output.scoring_history[-1]["iterations"]
+    assert la == it + 1 and lb == 0
+    assert np.all(np.abs(a.beta - b.beta)
+                  <= 1e-4 * np.maximum(1.0, np.abs(b.beta)))
+    ra = a.output.training_metrics.residual_deviance
+    rb = b.output.training_metrics.residual_deviance
+    assert abs(ra - rb) <= 1e-5 * abs(rb)
+    assert float(np.abs(pa - pb).max()) <= 1e-4

@@ -210,7 +210,9 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.backend.kernels.hist, "
             "h2o_tpu_torch.models.tree.engine, "
             "h2o_tpu_torch.models.tree.binning, "
-            "h2o_tpu_torch.models.model_base, h2o_tpu_torch.frame.chunks; "
+            "h2o_tpu_torch.models.model_base, h2o_tpu_torch.frame.chunks, "
+            "h2o_tpu_torch.models.glm, h2o_tpu_torch.models.datainfo, "
+            "h2o_tpu_torch.backend.kernels.gram; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
