@@ -15,7 +15,9 @@ HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
    real channels within 1e-4 of each cell's absolute mass, and two launches
    must be bit-identical; times the kernel, the plain version, one
    ``index_add_`` call on precomputed keys (a yardstick the port never
-   calls) and the memory-traffic bound;
+   calls) and the memory-traffic bound; each level's line also gives the
+   launch's shape (``hist.launch_shape``: rows per staged block, CTAs per
+   cluster, clusters, the largest tile);
 2. ``train``: trains the flagship GBM end to end — bernoulli, 11M x 28
    HIGGS-shaped rows from the benchmark's generator, depth 5, 20 bins,
    learn rate 0.1, seed 42, 10 trees scored once — and requires 50 flat
@@ -51,7 +53,9 @@ HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
    within 1e-5 of the float64 Gram on operands TF32 would move by 1e-4);
    times the kernel, the plain version, one ``torch.mm`` of precomputed
    (W o X)^T and [X | z] (TF32 off; a yardstick the port never calls) and
-   the bound (the bytes, or the operations of G's triangle and b);
+   the bound: the bytes, or the operations of G's triangle and b at the
+   rate of the arithmetic the kernel runs (3xTF32 on the tensor cores),
+   with the float32 FMA rate's bound printed beside it;
 8. ``glm_train``: ``bench.py``'s ``glm_irlsm`` leg on the HIGGS frame —
    binomial, IRLSM, seed 42, every other parameter at its default — and
    requires one Gram launch per IRLS iteration, no histogram launch, a
@@ -86,6 +90,7 @@ HIGGS_F = 28
 AIRLINES_ROWS = 116_000_000     # bench.py's airlines default (knobs.py:415)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM dense TF32, three products per 3xTF32
 REAL_TOL = 1e-4                # real channels: |kernel - plain| <= this x cell |mass|
 CPU_TOL = 1e-5                 # card vs CPU: leaf values and predictions
 GRAM_MAIN = (11_001_856, 29)   # GLM's HIGGS design: padded rows x (28 + intercept)
@@ -258,7 +263,8 @@ def phase_kernel(dev) -> dict:
         bound_ms = max(nbytes / HBM_BYTES_PER_S, rl * F * V / F32_OPS_PER_S) * 1e3
         row = dict(n_lv=n_lv, max_abs_err=float(err.max()), max_rel_mass=rel,
                    ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms)
+                   bound_ms=bound_ms,
+                   **hist.launch_shape(codes, lc, vv, n_lv, B))
         print("level_hist", json.dumps(row), flush=True)
         per_level.append(row)
     return {k: (max(r[k] for r in per_level) if k == "max_abs_err"
@@ -427,7 +433,8 @@ def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
     bound_ms = max(nbytes / HBM_BYTES_PER_S, rl * F * V / F32_OPS_PER_S) * 1e3
     return dict(rows=rl, n_lv=n_lv, max_abs_err=err, max_rel_mass=rel,
                 cells_over_2_24=over, ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms)
+                library_ms=library_ms, bound_ms=bound_ms,
+                **hist.launch_shape(codes, lc, vv, n_lv, B, groups))
 
 
 def phase_grouped_kernel(dev) -> dict:
@@ -586,12 +593,19 @@ def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
     del A, B
     nbytes = R * P * 4 + 2 * R * 4 + (P * P + P) * 4
     flops = 2 * R * (P * (P + 1) // 2 + P)   # G is symmetric: its triangle, and b
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    # the kernel's products run on the tensor cores in 3xTF32, so its
+    # operations are bounded at that rate; the float32 FMA rate's bound is
+    # printed beside it
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / TF32X3_OPS_PER_S
+    tile, tiles, n_chunks, chunk_rows, bk = gram._gram_plan(R, P, True)
     return dict(rows=R, cols=P, max_abs_err=err, max_rel_mass=rel,
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(by_bytes, by_ops) * 1e3,
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                tile_chunks_rows=list(gram._gram_plan(R, P, True)))
+                bound_by="bytes" if by_bytes >= by_ops
+                else "operations (3xTF32)",
+                bound_f32_ms=max(by_bytes, flops / F32_OPS_PER_S) * 1e3,
+                plan=dict(tile=tile, tiles=len(tiles), chunks=n_chunks,
+                          chunk_rows=chunk_rows, bk=bk))
 
 
 def gram_tf32_probe(dev, R: int, P: int, g) -> tuple[float, float]:

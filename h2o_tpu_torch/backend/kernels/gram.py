@@ -11,10 +11,13 @@ rows. Two forms:
   the oracle the card is checked against.
 - ``_cuda_gram``: the wrapper of the hand-written Hopper kernel
   ``csrc/gram.cu``, which replaces ``gram.py::_pallas_gram``: one product of
-  (W∘X)ᵀ with the augmented operand [X | z] over (output tile, row chunk)
-  CTAs, per-chunk partials summed in ascending chunk order by a second
-  launch (bit-identical from run to run, no float atomics). It reads X where
-  it lies: the zero-row padding of the plain version is not copied.
+  (W∘X)ᵀ with the augmented operand [X | z] on the tensor cores in 3xTF32
+  (float32 accuracy), over the upper triangle's output tiles x row chunks,
+  rows staged into shared memory once per (tile, chunk) by asynchronous
+  copies; per-chunk partials summed in ascending chunk order by a second
+  launch, which mirrors G (bit-identical from run to run, no float
+  atomics). It reads X where it lies: the zero-row padding of the plain
+  version is not copied.
 
 ``gram_accumulate`` dispatches on the tensor's device only: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -37,8 +40,11 @@ _BLOCK_CELLS = 1 << 25
 #: CTAs the kernel aims for (output tiles x row chunks); the chunk count
 #: follows from R and P alone, never from the card's SM count
 _TARGET_CTAS = 1024
-#: fewest rows a chunk is cut to
-_MIN_CHUNK_ROWS = 256
+#: (tile edge, rows per staged block) of the kernel's two forms, which the
+#: kernel picks itself (kNarrowTile/kNarrowBK, kWideTile/kWideBK): one
+#: 32 x 32 tile when the augmented width fits it, else 128 x 128 tiles
+_NARROW = (32, 256)
+_WIDE = (128, 64)
 
 
 def block_contrib(xb, wb, zb):
@@ -68,18 +74,25 @@ def _torch_gram(X, W, z, rb: int):
 
 
 def _gram_plan(R: int, P: int, has_z: bool):
-    """(tile, n_chunks, chunk_rows) of one launch: a 32-wide output tile when
-    the augmented width fits it, else 128-wide; enough row chunks that
-    tiles x chunks reach ``_TARGET_CTAS``, none under ``_MIN_CHUNK_ROWS``
-    rows."""
+    """(tile, tiles, n_chunks, chunk_rows, bk) of one launch: the tile edge,
+    the output tiles (ti, tj) with ti <= tj that cover G's upper triangle
+    and b (the last column of [X | z]), enough row chunks that tiles x
+    chunks reach ``_TARGET_CTAS``, each a whole number of ``bk``-row staged
+    blocks (so every block starts on 16 bytes). A function of R and P
+    only."""
     Q = P + int(has_z)
-    tile = 32 if Q <= 32 else 128
-    n_tiles = -(-P // tile) * -(-Q // tile)
-    n_chunks = max(1, min(-(-_TARGET_CTAS // n_tiles),
-                          -(-R // _MIN_CHUNK_ROWS)))
-    chunk_rows = max(1, -(-R // n_chunks))
+    tile, bk = _NARROW if Q <= _NARROW[0] else _WIDE
+    nti, ntj = -(-P // tile), -(-Q // tile)
+    tiles = tuple((ti, tj) for ti in range(nti) for tj in range(ti, ntj))
+    n_chunks = max(1, min(-(-_TARGET_CTAS // len(tiles)), -(-R // bk)))
+    per = -(-R // n_chunks)
+    chunk_rows = -(-per // bk) * bk
     n_chunks = max(1, -(-R // chunk_rows))
-    return tile, n_chunks, chunk_rows
+    return tile, tiles, n_chunks, chunk_rows, bk
+
+
+#: device copies of the tile lists, keyed by (tiles, device)
+_TILES: dict = {}
 
 
 def _check_inputs(X, W, z) -> None:
@@ -101,6 +114,9 @@ def _check_inputs(X, W, z) -> None:
     if not (X.is_contiguous() and W.is_contiguous()
             and (z is None or z.is_contiguous())):
         raise ValueError("X, W and z must be contiguous")
+    if any(t is not None and t.data_ptr() % 16 for t in (X, W, z)):
+        raise ValueError("X, W and z must start on 16 bytes (the kernel "
+                         "stages rows with 16-byte copies)")
 
 
 def _cuda_gram(X, W, z):
@@ -110,7 +126,10 @@ def _cuda_gram(X, W, z):
     _check_inputs(X, W, z)
     R, P = X.shape
     dev = X.device
-    tile, n_chunks, chunk_rows = _gram_plan(R, P, z is not None)
+    _tile, tiles, n_chunks, chunk_rows, _bk = _gram_plan(R, P, z is not None)
+    key = (tiles, str(dev))
+    if key not in _TILES:
+        _TILES[key] = torch.tensor(tiles, dtype=torch.int32, device=dev)
     Q = P + int(z is not None)
     G = torch.empty((P, P), dtype=torch.float32, device=dev)
     b = torch.empty((P,), dtype=torch.float32, device=dev) \
@@ -120,10 +139,10 @@ def _cuda_gram(X, W, z):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.h2o_gram(X.data_ptr(), W.data_ptr(),
-                          None if z is None else z.data_ptr(), R, P, tile,
-                          n_chunks, chunk_rows, partial.data_ptr(),
-                          G.data_ptr(), None if b is None else b.data_ptr(),
-                          stream)
+                          None if z is None else z.data_ptr(), R, P,
+                          _TILES[key].data_ptr(), len(tiles), n_chunks,
+                          chunk_rows, partial.data_ptr(), G.data_ptr(),
+                          None if b is None else b.data_ptr(), stream)
     check(lib, rc, "gram")
     GRAM_LAUNCHES += 1
     return G, b

@@ -16,7 +16,9 @@ each:
   kernel ``csrc/level_hist.cu``, which replaces both ``hist.py::_pallas_flat``
   and ``hist.py::_pallas_grouped``: a deterministic fixed-point scatter-add
   into shared-memory tiles of (feature, node range) pieces, one launch per
-  level for all groups, reading the code matrix in place.
+  level for all groups, reading the code matrix in place. The tiles of a
+  level form a thread-block cluster that reads each block of rows from
+  device memory once, multicast into every CTA's staging ring.
 
 ``level_hist_blocks`` and ``level_hist_one_group`` dispatch on the tensor's
 device only: a CUDA tensor launches the kernel or raises.
@@ -35,14 +37,22 @@ LAUNCHES = 0
 GROUPED_LAUNCHES = 0
 
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
-#: shared memory of one CTA tile, item table included — two CTAs per SM
-_TILE_BYTES = 112 * 1024
-#: the kernel's per-CTA shared-memory ceiling on Hopper (227 KB): one node
-#: of one feature, Bg x V int64 cells plus the item table, must fit
-_MAX_TILE_BYTES = 232_448
-#: the kernel's item table: at most 64 items of six int32 per tile
+#: shared memory a CTA can hold on Hopper (227 KB)
+_SMEM_BYTES = 232_448
+#: the kernel's item table (at most 64 items of six int32 per tile), ahead
+#: of the staging ring and the tile
 _MAX_ITEMS = 64
 _ITEM_BYTES = _MAX_ITEMS * 6 * 4
+#: the staging ring: the stages' mbarriers, then _STAGES blocks (the
+#: kernel's kStages) of up to _RING_ROWS rows (codes, node ids, channels;
+#: one row per thread of the kernel's 1024), at most _RING_BYTES in all;
+#: the rest holds the tile
+_BAR_BYTES = 128
+_STAGES = 2
+_RING_ROWS = 1024
+_RING_BYTES = 96 * 1024
+#: CTAs in a thread-block cluster (the portable maximum)
+_MAX_CLUSTER = 8
 
 
 # ---------------------------------------------------------------------------
@@ -127,37 +137,87 @@ def _torch_grouped(xgs, lc, vv, groups, n_lv: int, na_global: int,
 # ---------------------------------------------------------------------------
 # the CUDA kernel's wrappers
 # ---------------------------------------------------------------------------
-def _tile_plan(feats, n_lv: int, V: int):
-    """Pack the output into CTA tiles. ``feats`` is ((column, Bg, offset of
-    the feature's (n_lv, Bg, V) block), ...). A feature whose block exceeds a
-    tile is cut into balanced node ranges; the pieces are packed greedily in
-    order into tiles of at most ``_TILE_BYTES``. Returns (items, tile_start,
-    tile_cells): items as (column, n0, n1, Bg, tile offset, output offset)
-    rows."""
-    cap = (_TILE_BYTES - _ITEM_BYTES) // 8
+def _ring_plan(F: int, code_bytes: int, V: int, node_cells: int):
+    """(rows per staged block, ring bytes): the most rows, a multiple of 16
+    up to ``_RING_ROWS``, whose ``_STAGES`` blocks of codes, node ids and
+    channels fit ``_RING_BYTES`` and leave a tile room for one node of the
+    widest feature (``node_cells`` int64 cells). Every block then starts on
+    16 bytes. (0, 0) when not even 16 rows fit: the kernel then reads every
+    row straight from device memory."""
+    row_bytes = F * code_bytes + 4 + 4 * V
+    room = min(_RING_BYTES,
+               _SMEM_BYTES - _ITEM_BYTES - 8 * node_cells) - _BAR_BYTES
+    rb = min(_RING_ROWS, max(room, 0) // (_STAGES * row_bytes) // 16 * 16)
+    if rb < 16:
+        return 0, 0
+    return rb, _BAR_BYTES + _STAGES * rb * row_bytes
+
+
+def _staging(Xb, lc, vv, feats):
+    """The ring plan of these inputs: none when one does not start on 16
+    bytes, which the kernel's bulk copies need."""
+    if any(t.data_ptr() % 16 for t in (Xb, lc, vv)):
+        return 0, 0
+    V = vv.shape[1]
+    return _ring_plan(Xb.shape[1], Xb.element_size(), V,
+                      max(bg for _c, bg, _o in feats) * V)
+
+
+def _packed_tiles(feats, n_lv: int, V: int, cap: int):
+    """Features cut into node ranges only as far as one must be to fit
+    ``cap``; the pieces go, largest first, into the fewest tiles that hold
+    them, each to the tile the fewest rows reach so far (a piece's share of
+    the level's nodes), so a cluster's CTAs add about equally."""
     pieces = []
     for col, bg, off in feats:
         per_node = bg * V
-        if (per_node * 8 + _ITEM_BYTES) > _MAX_TILE_BYTES:
-            raise NotImplementedError(
-                f"one node of a {bg}-bin feature ({bg} x {V} int64 cells) "
-                f"exceeds the {_MAX_TILE_BYTES} bytes of shared memory a "
-                f"CTA can hold")
         npt = max(1, min(n_lv, cap // per_node))
         k = -(-n_lv // npt)
         bounds = [n_lv * i // k for i in range(k + 1)]
         for n0, n1 in zip(bounds, bounds[1:]):
             pieces.append((col, n0, n1, bg, off + n0 * per_node,
                            (n1 - n0) * per_node))
+    order = sorted(range(len(pieces)), key=lambda i: -pieces[i][5])
+    n_tiles = max(1, -(-sum(p[5] for p in pieces) // cap),
+                  -(-len(pieces) // _MAX_ITEMS))
+    while True:
+        used, rows, members = ([0] * n_tiles, [0] * n_tiles,
+                               [[] for _ in range(n_tiles)])
+        for i in order:
+            fits = [t for t in range(n_tiles) if used[t] + pieces[i][5] <= cap
+                    and len(members[t]) < _MAX_ITEMS]
+            if not fits:
+                break
+            t = min(fits, key=lambda t: (rows[t], used[t], t))
+            used[t] += pieces[i][5]
+            rows[t] += pieces[i][2] - pieces[i][1]
+            members[t].append(i)
+        else:
+            return [[pieces[i] for i in sorted(idx)] for idx in members]
+        n_tiles += 1
 
-    tiles, cur, used = [], [], 0
-    for p in pieces:
-        if cur and (used + p[5] > cap or len(cur) == _MAX_ITEMS):
-            tiles.append(cur)
-            cur, used = [], 0
-        cur.append(p)
-        used += p[5]
-    tiles.append(cur)
+
+def _tile_plan(feats, n_lv: int, V: int, ring_bytes: int):
+    """Pack the output into CTA tiles and the tiles into clusters.
+    ``feats`` is ((column, Bg, offset of the feature's (n_lv, Bg, V)
+    block), ...). A tile holds what the staging ring leaves of a CTA's
+    shared memory; features are packed into tiles by ``_packed_tiles``
+    (whole features where they fit: a CTA then adds for every row it
+    reads, so its warps' adds run with all lanes). Tiles form clusters of at most ``_MAX_CLUSTER``, padded with empty
+    tiles to equal size. Returns (items, tile_start, tile_cells, cluster):
+    items as (column, n0, n1, Bg, tile offset, output offset) rows,
+    tile_start with one entry per CTA (cluster-major) plus one."""
+    cap = (_SMEM_BYTES - _ITEM_BYTES - ring_bytes) // 8
+    for _col, bg, _off in feats:
+        if bg * V > cap:
+            raise NotImplementedError(
+                f"one node of a {bg}-bin feature ({bg} x {V} int64 cells) "
+                f"exceeds the {cap * 8} bytes of shared memory a CTA has "
+                f"beside its staging ring")
+    tiles = _packed_tiles(feats, n_lv, V, cap)
+    n_cl = -(-len(tiles) // _MAX_CLUSTER)
+    cluster = -(-len(tiles) // n_cl)
+    tiles += [[] for _ in range(n_cl * cluster - len(tiles))]
     items, starts, tile_cells = [], [0], 0
     for tile in tiles:
         used = 0
@@ -166,22 +226,25 @@ def _tile_plan(feats, n_lv: int, V: int):
             used += cells
         starts.append(len(items))
         tile_cells = max(tile_cells, used)
-    return items, starts, tile_cells
+    return items, starts, tile_cells, cluster
 
 
-#: device copies of tile plans, keyed by (feats, n_lv, V, device): a level's
-#: plan is built once, so the launches of a training run copy nothing
+#: device copies of tile plans, keyed by (feats, n_lv, V, ring, device): a
+#: level's plan is built once, so the launches of a training run copy
+#: nothing
 _PLANS: dict = {}
 
 
-def _device_plan(feats, n_lv: int, V: int, dev: torch.device):
-    key = (feats, n_lv, V, str(dev))
+def _device_plan(feats, n_lv: int, V: int, ring_bytes: int,
+                 dev: torch.device):
+    key = (feats, n_lv, V, ring_bytes, str(dev))
     plan = _PLANS.get(key)
     if plan is None:
-        items, starts, tile_cells = _tile_plan(feats, n_lv, V)
+        items, starts, tile_cells, cluster = _tile_plan(feats, n_lv, V,
+                                                        ring_bytes)
         plan = (torch.tensor(items, dtype=torch.int32, device=dev),
                 torch.tensor(starts, dtype=torch.int32, device=dev),
-                len(starts) - 1, tile_cells)
+                len(starts) - 1, tile_cells, cluster)
         _PLANS[key] = plan
     return plan
 
@@ -218,7 +281,9 @@ def _launch(Xb, lc, vv, n_lv: int, na_code: int, feats,
     Rl, F = Xb.shape
     V = vv.shape[1]
     dev = Xb.device
-    items, starts, n_tiles, tile_cells = _device_plan(feats, n_lv, V, dev)
+    rb, ring = _staging(Xb, lc, vv, feats)
+    items, starts, n_tiles, tile_cells, cluster = _device_plan(
+        feats, n_lv, V, ring, dev)
     lib = load_library()
     acc = torch.zeros(n_cells, dtype=torch.int64, device=dev)
     amax = torch.zeros(V, dtype=torch.int32, device=dev)
@@ -228,11 +293,49 @@ def _launch(Xb, lc, vv, n_lv: int, na_code: int, feats,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.h2o_level_hist(
             Xb.data_ptr(), Xb.element_size(), lc.data_ptr(), vv.data_ptr(),
-            Rl, F, V, n_lv, na_code, items.data_ptr(), starts.data_ptr(),
-            n_tiles, tile_cells, acc.data_ptr(), n_cells, amax.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), stream)
+            Rl, F, V, na_code, items.data_ptr(), starts.data_ptr(), n_tiles,
+            cluster, tile_cells, rb, acc.data_ptr(), n_cells,
+            amax.data_ptr(), scale.data_ptr(), out.data_ptr(), stream)
     check(lib, rc, "level_hist")
     return out
+
+
+def _flat_feats(F: int, n_lv: int, B: int, V: int):
+    """The flat plan's features (every one at width ``B``) and its cells."""
+    block = n_lv * B * V
+    return tuple((f, B, f * block) for f in range(F)), F * block
+
+
+def _grouped_feats(F: int, groups, n_lv: int, V: int):
+    """The grouped plan's features, each group's (Fg, n_lv, Bg, V) shape and
+    the cells of all groups, packed in ``groups`` order."""
+    feats, shapes, off = [], [], 0
+    for idxs, Bg, _mode in groups:
+        block = n_lv * Bg * V
+        for i, f in enumerate(idxs):
+            if not 0 <= f < F:
+                raise ValueError(f"group column {f} outside the {F} code "
+                                 f"columns")
+            feats.append((int(f), int(Bg), off + i * block))
+        shapes.append((len(idxs), n_lv, int(Bg), V))
+        off += len(idxs) * block
+    return tuple(feats), shapes, off
+
+
+def launch_shape(Xb, lc, vv, n_lv: int, nbins_tot: int,
+                 groups=None) -> dict:
+    """What one launch of the kernel runs for these inputs: rows per staged
+    block (0: no ring, every row read from device memory), stages, CTAs per
+    cluster, clusters (each a pass over the rows), and the largest tile's
+    bytes."""
+    F, V = Xb.shape[1], vv.shape[1]
+    feats = (_flat_feats(F, n_lv, nbins_tot, V)[0] if groups is None
+             else _grouped_feats(F, groups, n_lv, V)[0])
+    rb, ring = _staging(Xb, lc, vv, feats)
+    _items, starts, tile_cells, cluster = _tile_plan(feats, n_lv, V, ring)
+    return dict(rows_per_block=rb, stages=_STAGES, cluster=cluster,
+                clusters=(len(starts) - 1) // cluster,
+                tile_bytes=tile_cells * 8)
 
 
 def _cuda_flat(Xb, lc, vv, n_lv: int, nbins_tot: int) -> torch.Tensor:
@@ -240,9 +343,8 @@ def _cuda_flat(Xb, lc, vv, n_lv: int, nbins_tot: int) -> torch.Tensor:
     global LAUNCHES
     _check_inputs(Xb, lc, vv)
     F, V = Xb.shape[1], vv.shape[1]
-    block = n_lv * nbins_tot * V
-    feats = tuple((f, nbins_tot, f * block) for f in range(F))
-    out = _launch(Xb, lc, vv, n_lv, nbins_tot - 1, feats, F * block)
+    feats, n_cells = _flat_feats(F, n_lv, nbins_tot, V)
+    out = _launch(Xb, lc, vv, n_lv, nbins_tot - 1, feats, n_cells)
     LAUNCHES += 1
     return out.view(F, n_lv, nbins_tot, V)
 
@@ -253,18 +355,9 @@ def _cuda_grouped(Xb, lc, vv, groups, n_lv: int, na_global: int) -> tuple:
     order."""
     global GROUPED_LAUNCHES
     _check_inputs(Xb, lc, vv)
-    V = vv.shape[1]
-    feats, shapes, off = [], [], 0
-    for idxs, Bg, _mode in groups:
-        block = n_lv * Bg * V
-        for i, f in enumerate(idxs):
-            if not 0 <= f < Xb.shape[1]:
-                raise ValueError(f"group column {f} outside the {Xb.shape[1]} "
-                                 f"code columns")
-            feats.append((int(f), int(Bg), off + i * block))
-        shapes.append((len(idxs), n_lv, int(Bg), V))
-        off += len(idxs) * block
-    out = _launch(Xb, lc, vv, n_lv, na_global, tuple(feats), off)
+    feats, shapes, n_cells = _grouped_feats(Xb.shape[1], groups, n_lv,
+                                            vv.shape[1])
+    out = _launch(Xb, lc, vv, n_lv, na_global, feats, n_cells)
     GROUPED_LAUNCHES += 1
     views, s = [], 0
     for shp in shapes:

@@ -161,6 +161,176 @@ def test_grouped_kernel_matches_plain(dev, dtype, n_lv):
         assert float(a[:, :, Bg - 1, 0].sum()) > 0           # NA remapped
 
 
+def _airlines_level(R, n_lv, dev, seed=3):
+    """int16 codes at the airlines plan's widths with 5% NA (code 300),
+    node ids, and [weight, g, h] channels with integer weights."""
+    rng = np.random.default_rng(seed)
+    widths = (22, 12, 31, 7, 22, 300, 300, 20, 20)
+    codes = np.stack([rng.integers(0, w, R) for w in widths], 1)
+    codes = np.where(rng.random(codes.shape) < 0.05, 300, codes)
+    lc = rng.integers(0, n_lv, R).astype(np.int32)
+    vv = rng.normal(size=(R, 3)).astype(np.float32)
+    vv[:, 0] = rng.integers(0, 4, R)
+    return (torch.from_numpy(codes.astype(np.int16)).to(dev),
+            torch.from_numpy(lc).to(dev), torch.from_numpy(vv).to(dev))
+
+
+def _exact_count(codes, lc, w, groups, n_lv, na_code):
+    """Each cell's int64 sum of integer weights, in the grouped output's
+    packed order (NA remapped to each group's last slot)."""
+    keys, n = [], 0
+    for idxs, Bg, _mode in groups:
+        c = codes[:, list(idxs)].long()
+        c = torch.where(c == na_code, Bg - 1, c)
+        slot = torch.arange(len(idxs), device=c.device)[None, :]
+        keys.append(n + (slot * n_lv + lc[:, None].long()) * Bg + c)
+        n += len(idxs) * n_lv * Bg
+    keys = torch.cat(keys, 1).reshape(-1)
+    return torch.zeros(n, dtype=torch.int64, device=codes.device).index_add_(
+        0, keys, w.long()[:, None].expand(-1, codes.shape[1]).reshape(-1))
+
+
+_AIRLINES_GROUPS = (((0, 2, 4, 7, 8), 32, "onehot"), ((1,), 16, "onehot"),
+                    ((3,), 8, "segsum"), ((5, 6), 301, "onehot"))
+
+
+@pytest.mark.parametrize("n_lv,R", [(16, 300_007), (32, 100_003)])
+def test_clustered_grouped_kernel_matches_plain_and_the_exact_count(dev, n_lv,
+                                                                     R):
+    """The airlines plan at n_lv = 16 is one cluster of two CTAs (each row
+    block multicast to both); at n_lv = 32 one cluster of five. Against the
+    plain version (integer channel equal, real channels within 1e-4 of the
+    cell mass), bit-identical over two launches, and the weight channel
+    equal to the exact int64 count; R is ragged against the staged block."""
+    from h2o_tpu_torch.backend.kernels import hist as h
+
+    codes, lc, vv = _airlines_level(R, n_lv, dev)
+    feats = tuple((f, Bg, 0) for idxs, Bg, _m in _AIRLINES_GROUPS
+                  for f in idxs)
+    _rb, ring = h._ring_plan(9, 2, 3, 301 * 3)
+    cluster = h._tile_plan(feats, n_lv, 3, ring)[3]
+    assert cluster == {16: 2, 32: 5}[n_lv]
+    k1 = h._cuda_grouped(codes, lc, vv, _AIRLINES_GROUPS, n_lv, 300)
+    k2 = h._cuda_grouped(codes, lc, vv, _AIRLINES_GROUPS, n_lv, 300)
+    xgs = [codes[:, list(idxs)] for idxs, _Bg, _m in _AIRLINES_GROUPS]
+    plain = h._torch_grouped(xgs, lc, vv, _AIRLINES_GROUPS, n_lv, 300, 1024)
+    mass = h._torch_grouped(xgs, lc, vv.abs(), _AIRLINES_GROUPS, n_lv, 300,
+                            1024)
+    exact = _exact_count(codes, lc, vv[:, 0], _AIRLINES_GROUPS, n_lv, 300)
+    torch.cuda.synchronize()
+    w = torch.cat([a[..., 0].reshape(-1) for a in k1])
+    assert torch.equal(w, exact.float())
+    for a, b, p, m in zip(k1, k2, plain, mass):
+        assert torch.equal(a, b)
+        assert torch.equal(a[..., 0], p[..., 0])
+        assert bool(((a - p).abs() <= REAL_TOL * m).all())
+
+
+def test_plan_of_two_clusters_matches_the_exact_count(dev):
+    """Sixteen 1025-bin features at n_lv = 16 need more tiles than one
+    cluster of eight: every cluster makes its own pass over the rows, and
+    the weight channel still equals the exact int64 count, bit for bit,
+    with the real channels within 1e-4 of the plain version's cell mass."""
+    rng = np.random.default_rng(4)
+    R, F, B, n_lv = 60_001, 16, 1025, 16
+    codes = torch.from_numpy(rng.integers(0, B, (R, F)).astype(np.int16)
+                             ).to(dev)
+    lc = torch.from_numpy(rng.integers(0, n_lv, R).astype(np.int32)).to(dev)
+    vv = rng.normal(size=(R, 3)).astype(np.float32)
+    vv[:, 0] = rng.integers(0, 4, R)
+    vv = torch.from_numpy(vv).to(dev)
+    feats = tuple((f, B, f * n_lv * B * 3) for f in range(F))
+    _rb, ring = hist._ring_plan(F, 2, 3, B * 3)
+    _i, starts, _c, cluster = hist._tile_plan(feats, n_lv, 3, ring)
+    assert (len(starts) - 1) // cluster > 1
+    groups = ((tuple(range(F)), B, "onehot"),)
+    k1 = hist._cuda_flat(codes, lc, vv, n_lv, B)
+    k2 = hist._cuda_flat(codes, lc, vv, n_lv, B)
+    plain = hist._torch_flat(codes, lc, vv, n_lv, B, 1024)
+    mass = hist._torch_flat(codes, lc, vv.abs(), n_lv, B, 1024)
+    exact = _exact_count(codes, lc, vv[:, 0], groups, n_lv, B - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    assert torch.equal(k1[..., 0].reshape(-1), exact.float())
+    assert bool(((k1 - plain).abs() <= REAL_TOL * mass).all())
+
+
+@pytest.mark.parametrize("F,B,n_lv,staged", [(2_000, 4, 2, False),
+                                              (2, 8_000, 1, True),
+                                              (1, 9_621, 1, False)])
+def test_kernel_takes_wide_rows_and_wide_features(dev, F, B, n_lv, staged):
+    """Rows of 2,000 int16 codes (too wide for the staging ring: every row
+    is read from device memory, 32 tiles in 4 clusters), a feature of 8,000
+    bins (a ring of fewer rows beside its 192 KB node) and one of 9,621
+    (the widest node shared memory holds, no ring): against the plain
+    version and the exact int64 count, bit-identical over two launches."""
+    rng = np.random.default_rng(5)
+    R = 5_003
+    codes = torch.from_numpy(rng.integers(0, B, (R, F)).astype(np.int16)
+                             ).to(dev)
+    lc = torch.from_numpy(rng.integers(0, n_lv, R).astype(np.int32)).to(dev)
+    vv = rng.normal(size=(R, 3)).astype(np.float32)
+    vv[:, 0] = rng.integers(0, 4, R)
+    vv = torch.from_numpy(vv).to(dev)
+    assert (hist.launch_shape(codes, lc, vv, n_lv, B)["rows_per_block"] > 0
+            ) == staged
+    k1 = hist._cuda_flat(codes, lc, vv, n_lv, B)
+    k2 = hist._cuda_flat(codes, lc, vv, n_lv, B)
+    plain = hist._torch_flat(codes, lc, vv, n_lv, B, 1024)
+    mass = hist._torch_flat(codes, lc, vv.abs(), n_lv, B, 1024)
+    groups = ((tuple(range(F)), B, "onehot"),)
+    exact = _exact_count(codes, lc, vv[:, 0], groups, n_lv, B - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    assert torch.equal(k1[..., 0].reshape(-1), exact.float())
+    assert bool(((k1 - plain).abs() <= REAL_TOL * mass).all())
+
+
+@pytest.mark.parametrize("n_lv", [1, 2, 4])
+def test_skewed_cells_at_early_levels_match_the_exact_count(dev, n_lv):
+    """Codes skewed so that most lanes of a warp add into one cell of the
+    narrow features (7 to 32 bins) at early levels, where those adds
+    collide most: the weight channel equals the exact int64 count and the
+    real channels (scaled up, so the low words carry into the high ones)
+    the plain version within 1e-4 of the cell mass."""
+    codes, lc, vv = _airlines_level(200_003, n_lv, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    codes[torch.rand(codes.shape, generator=g, device=dev) < 0.7] = 0
+    vv[:, 1:] *= 1e6
+    k1 = hist._cuda_grouped(codes, lc, vv, _AIRLINES_GROUPS, n_lv, 300)
+    k2 = hist._cuda_grouped(codes, lc, vv, _AIRLINES_GROUPS, n_lv, 300)
+    xgs = [codes[:, list(idxs)] for idxs, _Bg, _m in _AIRLINES_GROUPS]
+    plain = hist._torch_grouped(xgs, lc, vv, _AIRLINES_GROUPS, n_lv, 300,
+                                1024)
+    mass = hist._torch_grouped(xgs, lc, vv.abs(), _AIRLINES_GROUPS, n_lv, 300,
+                               1024)
+    exact = _exact_count(codes, lc, vv[:, 0], _AIRLINES_GROUPS, n_lv, 300)
+    torch.cuda.synchronize()
+    w = torch.cat([a[..., 0].reshape(-1) for a in k1])
+    assert torch.equal(w, exact.float())
+    for a, b, p, m in zip(k1, k2, plain, mass):
+        assert torch.equal(a, b)
+        assert bool(((a - p).abs() <= REAL_TOL * m).all())
+
+
+def test_inputs_off_16_bytes_match_aligned_copies(dev):
+    """Views one row in (18 bytes off 16) cannot be bulk-copied: the kernel
+    reads their rows from device memory, with the same bits as the
+    staged launch on aligned copies of the same rows."""
+    codes, lc, vv = _airlines_level(100_001, 4, dev)
+    views = (codes[1:], lc[1:], vv[1:])
+    copies = tuple(t.clone() for t in views)
+    assert hist.launch_shape(*views, 4, 301, _AIRLINES_GROUPS)[
+        "rows_per_block"] == 0
+    assert hist.launch_shape(*copies, 4, 301, _AIRLINES_GROUPS)[
+        "rows_per_block"] > 0
+    a = hist._cuda_grouped(*views, _AIRLINES_GROUPS, 4, 300)
+    b = hist._cuda_grouped(*copies, _AIRLINES_GROUPS, 4, 300)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_one_group_call_is_the_grouped_kernel(dev):
     Xb, lc, vv = _grouped_inputs(20_000, [299, 299], 4, torch.int16, dev, 300)
     before = hist.GROUPED_LAUNCHES
@@ -190,12 +360,15 @@ def _gram_inputs(R, P, dev, seed=2, integer=False):
 
 
 @pytest.mark.parametrize("with_z", [True, False])
-@pytest.mark.parametrize("R,P", [(1000, 1), (70_001, 29), (20_011, 130),
+@pytest.mark.parametrize("R,P", [(1000, 1), (70_001, 29), (5_003, 31),
+                                 (6_007, 32), (4_099, 33), (20_011, 130),
                                  (9_999, 690)])
 def test_gram_kernel_matches_plain(dev, R, P, with_z):
-    """Ragged R against the kernel's chunk and staging sizes, both tile
-    widths (P + 1 <= 32 and above), with and without z; two launches are
-    bit-identical."""
+    """Ragged R against the kernel's chunk and staging sizes, both forms
+    (one 32-wide tile when P + 1 <= 32, else the triangle of 128-wide
+    tiles, whose rows are staged in 16-, 8- or 4-byte pieces as P allows),
+    with and without z; two launches are bit-identical and G is exactly
+    symmetric."""
     X, W, z = _gram_inputs(R, P, dev)
     z = z if with_z else None
     before = gram.GRAM_LAUNCHES
@@ -207,6 +380,7 @@ def test_gram_kernel_matches_plain(dev, R, P, with_z):
                               else z.abs(), R)
     torch.cuda.synchronize()
     assert G1.shape == (P, P) and torch.equal(G1, G2)
+    assert torch.equal(G1, G1.T)
     assert bool(((G1 - Gp).abs() <= GRAM_TOL * Gm).all())
     if with_z:
         assert b1.shape == (P,) and torch.equal(b1, b2)

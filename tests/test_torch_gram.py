@@ -103,17 +103,86 @@ def test_block_contrib_matches_the_reference():
 
 
 @pytest.mark.parametrize("R,P,with_z,want", [
-    (11_001_856, 29, True, (32, 1024, 10_744)),
-    (1_048_576, 690, True, (128, 29, 36_158)),
-    (1000, 1, False, (32, 4, 250)),
-    (100, 2000, True, (128, 1, 100)),
+    (11_001_856, 29, True, (32, 1, 1024, 10_752, 256)),
+    (1_048_576, 690, True, (128, 21, 49, 21_440, 64)),
+    (1000, 1, False, (32, 1, 4, 256, 256)),
+    (100, 2000, True, (128, 136, 2, 64, 64)),
 ])
 def test_kernel_plan_depends_on_rows_and_width_only(R, P, with_z, want):
-    """The kernel's launch plan (tile width, row chunks, rows per chunk)
-    is a function of R and P alone, and its chunks cover R."""
-    tile, n_chunks, chunk_rows = tgram._gram_plan(R, P, with_z)
-    assert (tile, n_chunks, chunk_rows) == want
+    """The kernel's launch plan (tile edge, triangle tiles, row chunks, rows
+    per chunk, rows per staged block) is a function of R and P alone, its
+    chunks cover R, and each chunk is a whole number of staged blocks."""
+    tile, tiles, n_chunks, chunk_rows, bk = tgram._gram_plan(R, P, with_z)
+    assert (tile, len(tiles), n_chunks, chunk_rows, bk) == want
     assert n_chunks * chunk_rows >= R > (n_chunks - 1) * chunk_rows
+    assert chunk_rows % bk == 0 and bk % 4 == 0
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("P", [1, 29, 31, 32, 130, 690])
+def test_kernel_plan_covers_the_upper_triangle_once(P, with_z):
+    """The triangle grid: the plan's tiles (ti <= tj) hold every entry of
+    G's upper triangle, and every entry of b (column P of [X | z]), exactly
+    once; the reduce pass mirrors the lower triangle from them. The chunk
+    count moves with R only (P fixed), never with anything else."""
+    Q = P + with_z
+    tile, tiles, n_chunks, _rows, _bk = tgram._gram_plan(10_000, P, with_z)
+    assert all(ti <= tj for ti, tj in tiles)
+    owned = np.zeros((P, Q), np.int64)
+    for ti, tj in tiles:
+        owned[ti * tile:(ti + 1) * tile, tj * tile:(tj + 1) * tile] += 1
+    i, j = np.indices((P, Q))
+    assert (owned[j >= i] == 1).all()
+    assert len(tiles) == len({*tiles})
+    assert tgram._gram_plan(10_000, P, with_z)[2] == n_chunks
+    assert tgram._gram_plan(10_000_000, P, with_z)[2] >= n_chunks
+
+
+def _tf32(a):
+    """float32 rounded to TF32's 10 mantissa bits, nearest with ties away
+    from zero (PTX ``cvt.rna.tf32.f32``; the kernel's hi part)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(np.float32)
+
+
+def _tf32_truncated(a):
+    """float32 cut to TF32's 10 mantissa bits: what the tensor cores read of
+    a float32 operand, the kernel's lo part, which it passes unrounded."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return (bits & ~0x1FFF).view(np.float32)
+
+
+def test_3xtf32_split_keeps_float32_accuracy_where_tf32_does_not():
+    """The kernel's numeric design rehearsed in numpy on the operands of
+    ``chip_smoke.gram_tf32_probe`` (X, z in [1, 2) with a 2^-12 term a TF32
+    operand drops; W in {2^-2, 2^-3, 2^-4}): with a = hi + lo split into two
+    TF32 numbers (hi rounded to nearest, lo = a - hi truncated as the
+    tensor cores read it), lo*hi + hi*lo + hi*hi lands within 1e-5 of the
+    float64 Gram, while one TF32 product (hi*hi) misses by more than
+    1e-4."""
+    rng = np.random.default_rng(7)
+    R, P = 4096, 29
+
+    def on_grid(shape):
+        return (1.0 + rng.integers(0, 1024, shape) * 2.0 ** -10
+                + 2.0 ** -12).astype(np.float32)
+
+    X, z = on_grid((R, P)), on_grid(R)
+    W = (2.0 ** -rng.integers(2, 5, R)).astype(np.float32)
+    A = X * W[:, None]                       # float32, as the kernel forms it
+    B = np.concatenate([X, z[:, None]], 1)
+    exact = A.astype(np.float64).T @ B.astype(np.float64)
+
+    def split(a):
+        hi = _tf32(a)
+        return (hi.astype(np.float64),
+                _tf32_truncated(a - hi).astype(np.float64))
+
+    (ah, al), (bh, bl) = split(A), split(B)
+    three = al.T @ bh + ah.T @ bl + ah.T @ bh
+    one = ah.T @ bh
+    assert np.abs(three - exact).max() / exact.min() <= 1e-5
+    assert (np.abs(one - exact) / exact).min() > 1e-4
 
 
 def test_cpu_tensor_takes_the_plain_version_and_other_devices_raise():

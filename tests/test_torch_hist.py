@@ -169,10 +169,13 @@ def test_norm_groups_is_the_reference():
                                       (4, 21, 1), (32, 9, 4)])
 def test_tile_plan_covers_every_cell_once(n_lv, B, V):
     """The kernel's tile plan (host-side, so checked here): every output
-    cell is owned by exactly one item, no tile exceeds shared memory, and a
-    feature too wide for one tile is cut into node ranges."""
+    cell is owned by exactly one item, no tile and the staging ring exceed
+    shared memory, and a feature too wide for one tile is cut into node
+    ranges."""
     feats = tuple((f, B, f * n_lv * B * V) for f in range(3))
-    items, starts, tile_cells = thist._tile_plan(feats, n_lv, V)
+    _rb, ring = thist._ring_plan(3, 2, V, B * V)
+    items, starts, tile_cells, cluster = thist._tile_plan(feats, n_lv, V,
+                                                          ring)
     owned = np.zeros(3 * n_lv * B * V, np.int64)
     for col, n0, n1, bg, _smem, out in items:
         assert bg == B and 0 <= n0 < n1 <= n_lv
@@ -180,11 +183,112 @@ def test_tile_plan_covers_every_cell_once(n_lv, B, V):
         owned[out:out + (n1 - n0) * B * V] += 1
     assert (owned == 1).all()
     assert starts[0] == 0 and starts[-1] == len(items)
-    assert tile_cells * 8 + thist._ITEM_BYTES <= thist._MAX_TILE_BYTES
-    if n_lv * B * V * 8 > thist._TILE_BYTES:
+    cap = thist._SMEM_BYTES - thist._ITEM_BYTES - ring
+    assert tile_cells * 8 <= cap
+    if n_lv * B * V * 8 > cap:
         assert len(items) > 3                                # node ranges
     with pytest.raises(NotImplementedError, match="shared memory"):
-        thist._tile_plan(((0, 10_000, 0),), 1, 3)
+        thist._tile_plan(((0, 10_000, 0),), 1, 3, ring)
+
+
+def _airlines_feats(n_lv, V=3):
+    """The airlines plan's features as ``_cuda_grouped`` lays them out."""
+    groups = (((0, 2, 4, 7, 8), 32), ((1,), 16), ((3,), 8), ((5, 6), 301))
+    feats, off = [], 0
+    for idxs, Bg in groups:
+        feats += [(f, Bg, off + i * n_lv * Bg * V) for i, f in enumerate(idxs)]
+        off += len(idxs) * n_lv * Bg * V
+    return tuple(feats), off
+
+
+@pytest.mark.parametrize("n_lv", [1, 2, 4, 8, 16, 32, 64])
+def test_cluster_plan_owns_every_cell_once_within_shared_memory(n_lv):
+    """The cluster plan at the airlines widths (9 int16 code columns,
+    V = 3): each (feature, node) cell belongs to exactly one CTA, the tiles
+    of a level form clusters of at most 8 CTAs with every CTA's tile plus
+    the staging ring within 227 KB, and every level of a depth-5 tree
+    (n_lv <= 16) is one cluster: one pass over the rows. Deeper levels may
+    take more than one cluster."""
+    feats, n_cells = _airlines_feats(n_lv)
+    rb, ring = thist._ring_plan(9, 2, 3, 301 * 3)
+    assert rb % 16 == 0 and ring <= thist._RING_BYTES
+    items, starts, tile_cells, cluster = thist._tile_plan(feats, n_lv, 3,
+                                                          ring)
+    n_ctas = len(starts) - 1
+    assert 1 <= cluster <= thist._MAX_CLUSTER and n_ctas % cluster == 0
+    assert thist._ITEM_BYTES + ring + tile_cells * 8 <= 232_448
+    owned = np.zeros(n_cells, np.int64)
+    for t in range(n_ctas):
+        used = 0
+        for col, n0, n1, bg, smem, out in items[starts[t]:starts[t + 1]]:
+            assert smem == used and 0 <= n0 < n1 <= n_lv
+            used += (n1 - n0) * bg * 3
+            owned[out:out + (n1 - n0) * bg * 3] += 1
+        assert used <= tile_cells
+        assert starts[t + 1] - starts[t] <= thist._MAX_ITEMS
+    assert (owned == 1).all()
+    if n_lv <= 16:
+        assert n_ctas == cluster                      # one cluster per level
+    assert thist._tile_plan(feats, n_lv, 3, ring) == \
+        (items, starts, tile_cells, cluster)          # a function of its input
+
+
+def test_cluster_plan_takes_more_than_one_cluster_when_tiles_exceed_eight():
+    """Sixteen 1025-bin features at n_lv = 16 hold 6.3 MB of cells: more
+    tiles than one cluster of 8 holds, so the plan takes several clusters of
+    equal size (padded with empty tiles), each a pass over the rows."""
+    feats = tuple((f, 1025, f * 16 * 1025 * 3) for f in range(16))
+    _rb, ring = thist._ring_plan(16, 2, 3, 1025 * 3)
+    items, starts, _cells, cluster = thist._tile_plan(feats, 16, 3, ring)
+    n_ctas = len(starts) - 1
+    assert cluster <= thist._MAX_CLUSTER and n_ctas // cluster > 1
+    assert n_ctas % cluster == 0
+
+
+@pytest.mark.parametrize("F,code_bytes,B,ring", [
+    (9, 2, 301, "full"),       # airlines: 1024 rows a block
+    (9, 2, 8_000, "shrunk"),   # one node of 192 KB leaves room for fewer rows
+    (9, 2, 9_621, "none"),     # the widest node shared memory holds
+    (2_000, 2, 4, "none"),     # rows of 4,016 bytes: 16 of them do not fit
+    (3_100, 1, 21, "none"),
+    (760, 4, 21, "shrunk"),    # 16 rows of 3,056 bytes, two stages
+    (800, 4, 21, "none"),
+])
+def test_ring_plan_gives_way_to_wide_rows_and_wide_features(F, code_bytes, B,
+                                                            ring):
+    """The staging ring takes only what the tile leaves: fewer rows per
+    block beside a wide feature's node, and no ring at all (every row read
+    from device memory) when not even 16 rows fit. So any row width, and any
+    feature one node of which fits shared memory beside the item table, is
+    planned, as the unstaged kernel took them; one bin more is refused."""
+    V, n_lv = 3, 2
+    rb, ring_bytes = thist._ring_plan(F, code_bytes, V, B * V)
+    assert {"full": rb == thist._RING_ROWS, "shrunk": 16 <= rb < 1024,
+            "none": rb == ring_bytes == 0}[ring]
+    assert rb % 16 == 0
+    feats = tuple((f, B, f * n_lv * B * V) for f in range(F))
+    items, starts, tile_cells, cluster = thist._tile_plan(feats, n_lv, V,
+                                                          ring_bytes)
+    assert thist._ITEM_BYTES + ring_bytes + 8 * tile_cells <= 232_448
+    owned = np.zeros(F * n_lv * B * V, np.int64)
+    for _col, n0, n1, bg, _smem, out in items:
+        owned[out:out + (n1 - n0) * bg * V] += 1
+    assert (owned == 1).all() and cluster <= thist._MAX_CLUSTER
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        thist._tile_plan(((0, 9_622, 0),), 1, V, 0)
+
+
+def test_inputs_off_16_bytes_are_planned_without_a_ring():
+    """The ring's bulk copies need 16-byte starts; inputs that do not start
+    there (a view one row in) are read from device memory instead."""
+    Xb = torch.zeros((1001, 9), dtype=torch.int16)
+    lc = torch.zeros(1001, dtype=torch.int32)
+    vv = torch.zeros((1001, 3))
+    feats = ((0, 32, 0),)
+    assert thist._staging(Xb, lc, vv, feats)[0] == thist._RING_ROWS
+    assert thist._staging(Xb[1:], lc[1:], vv[1:], feats) == (0, 0)
+    assert thist.launch_shape(Xb[1:], lc[1:], vv[1:], 1, 32)[
+        "rows_per_block"] == 0
 
 
 @pytest.mark.parametrize("rl,want", [(8192, 8192), (11_001_856, 8192),
