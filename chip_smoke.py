@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives three
+Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives four
 paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan), the
-airlines-shaped categorical GBM (grouped plan, set splits) and the
-HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
+airlines-shaped categorical GBM (grouped plan, set splits), the
+HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel) and the
+covertype-shaped multinomial DRF and XRT (depth 12, row and column
+sampling on jax's random streams, out-of-bag metrics). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -30,9 +32,8 @@ HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
    through its grouped wrapper at the airlines plan (9 int16 features in
    width buckets 32/16/8/301, 5% NA) at 11,001,856 rows and at the airlines
    train's 116,006,912 padded rows, whose numbers the kernel line reports;
-   the weight channel must equal the exact int64 count, and the plain
-   version wherever that count is below 2^24 (above it float32 sums stop
-   counting exactly); plus one wide case (a 1025-bin bucket at n_lv = 16)
+   the weight channel must equal the exact int64 count and the plain
+   version (float64 sums, rounded once); plus one wide case (a 1025-bin bucket at n_lv = 16)
    that needs the node-range tiling;
 5. ``airlines_train``: the airlines-shaped GBM end to end — 116M rows from
    the benchmark's airlines generator (seven categoricals, Origin/Dest at
@@ -67,12 +68,33 @@ HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel). In order:
     coefficients within 1e-4 x max(1, |beta|), residual deviance within a
     relative 1e-5, predictions within 1e-4 (a one-iteration difference in
     where IRLS stops moves beta by up to ``beta_epsilon``); the card's
-    lambda search makes iterations + 1 Gram launches (its lambda_max pass).
+    lambda search makes iterations + 1 Gram launches (its lambda_max pass);
+11. ``level_hist_covtype``: the kernel through the wrapper the covertype
+    frame's plan picks (581,012 rows x 54: 10 continuous columns, 4
+    wilderness and 40 soil one-hots; ``_covtype_cols``), on the frame's own
+    bin codes at 581,120 padded rows, at n_lv = 64, 512 and 2,048 (DRF's
+    deepest level), V = 3 with integer bag weights: the same checks and
+    timings as ``level_hist_grouped``, with each level's launch shape;
+12. ``drf_train``: the JAX package's DRF defaults on that frame — 50 trees,
+    max_depth 20 capped to 12, sample_rate 0.632, mtries floor(sqrt(54)) =
+    7, nbins 20, min_rows 10, seed 42 — 7 classes: requires 50 x 7 x 12 =
+    4,200 launches of the plan's wrapper and none of the other two kernels,
+    training metrics "Reported on OOB data", an OOB logloss finite and below
+    the class prior's (1.205 nats), a mean per-class error below the
+    prior's 6/7, and class probabilities finite with rows summing to 1
+    within 1e-5;
+13. ``xrt_train``: the same for XRT (random bin edges), 10 trees, 840
+    launches;
+14. ``drf_card_vs_cpu``: that DRF on 100,000 rows x 5 iterations on the card
+    and on the CPU: equal split features, NA directions, split bins, leaf
+    values and out-of-bag counts (integer channels), predictions within
+    1e-5.
 
 It prints the card's name and power limit, one JSON line of per-kernel
-numbers, and last ``{"ok": true, "device": {...}}``. Any failed phase
-raises and exits non-zero without that line; so does a machine without a
-CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
+numbers (with each kernel's launches per path; the wrapper the covertype
+plan picks carries that path's levels under ``covtype``), and last
+``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
 
 from __future__ import annotations
@@ -179,6 +201,76 @@ def _airlines_frame(nrow: int, device):
     return fr
 
 
+#: UCI Covertype (``covtype.data``): the 10 continuous columns and their
+#: published ranges, then 4 wilderness-area and 40 soil-type one-hots
+COVTYPE_CONT = (("Elevation", 1859, 3858), ("Aspect", 0, 360),
+                ("Slope", 0, 66), ("Horizontal_Distance_To_Hydrology", 0, 1397),
+                ("Vertical_Distance_To_Hydrology", -173, 601),
+                ("Horizontal_Distance_To_Roadways", 0, 7117),
+                ("Hillshade_9am", 0, 254), ("Hillshade_Noon", 0, 254),
+                ("Hillshade_3pm", 0, 254),
+                ("Horizontal_Distance_To_Fire_Points", 0, 7173))
+#: the published class counts of Cover_Type 1..7 (581,012 rows)
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVTYPE_ROWS = sum(COVTYPE_COUNTS)
+#: per class: mean elevation, roughly the published class means
+_COVTYPE_ELEV = (3128, 2955, 2394, 2223, 2787, 2419, 3362)
+
+
+def _covtype_cols(nrow: int = COVTYPE_ROWS, seed: int = 581):
+    """A covertype-shaped frame: ``nrow`` rows drawn with the published
+    class frequencies (exactly the published counts at 581,012 rows),
+    integer-valued continuous columns inside their published ranges whose
+    centres move with the class (elevation most), and wilderness and soil
+    one-hots from per-class probabilities. Returns (name -> values) and the
+    class codes 0..6."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(COVTYPE_COUNTS)
+    if nrow != COVTYPE_ROWS:
+        counts = np.floor(counts * nrow / COVTYPE_ROWS).astype(np.int64)
+        counts[1] += nrow - counts.sum()
+    y = rng.permutation(np.repeat(np.arange(7), counts))
+    cols = {}
+    shift = rng.normal(size=(10, 7))
+    shift[0] = (np.asarray(_COVTYPE_ELEV) - 2858.5) / 1999.0 * 4
+    for j, (name, lo, hi) in enumerate(COVTYPE_CONT):
+        u = 0.5 + 0.12 * shift[j][y] + 0.18 * rng.standard_normal(nrow)
+        cols[name] = np.rint(lo + np.clip(u, 0, 1) * (hi - lo)).astype(
+            np.float32)
+
+    def one_hot(prefix, k, alpha):
+        p = rng.dirichlet(np.full(k, alpha), size=7)          # (7, k)
+        c = (rng.random(nrow)[:, None] > np.cumsum(p[y], axis=1)).sum(1)
+        for i in range(k):
+            cols[f"{prefix}{i + 1}"] = (c == i).astype(np.float32)
+    one_hot("Wilderness_Area", 4, 1.0)
+    one_hot("Soil_Type", 40, 0.3)
+    return cols, y.astype(np.float32)
+
+
+def _covtype_frame(nrow: int, device):
+    from h2o_tpu_torch import Frame, Vec
+    from h2o_tpu_torch.frame.vec import T_CAT
+
+    cols, y = _covtype_cols(nrow)
+    fr = Frame.from_dict(cols, device=device)
+    fr.add("Cover_Type", Vec.from_numpy(y, type=T_CAT, device=device,
+                                        domain=[str(i) for i in range(1, 8)]))
+    return fr
+
+
+def _drf(fr, ntrees: int, xrt: bool = False):
+    """The JAX package's own DRF defaults (``h2o_tpu/models/drf.py``):
+    max_depth 20 capped to 12, sample_rate 0.632, mtries -1 ->
+    floor(sqrt(54)) = 7, nbins 20, min_rows 10; seed 42. ``xrt`` takes XRT
+    (the same on random bin edges)."""
+    from h2o_tpu_torch import DRF, XRT, DRFParameters, XRTParameters
+
+    builder, params = (XRT, XRTParameters) if xrt else (DRF, DRFParameters)
+    return builder(params(training_frame=fr, response_column="Cover_Type",
+                          ntrees=ntrees, seed=42)).train_model()
+
+
 def _gbm(fr, ntrees: int, response: str = "response"):
     from h2o_tpu_torch import GBM, GBMParameters
 
@@ -237,8 +329,8 @@ def phase_kernel(dev) -> dict:
                            dtype=torch.int32)
         k1 = hist._cuda_flat(codes, lc, vv, n_lv, B)
         k2 = hist._cuda_flat(codes, lc, vv, n_lv, B)
-        plain = hist._torch_flat(codes, lc, vv, n_lv, B, 8192)
-        mass = hist._torch_flat(codes, lc, vv.abs(), n_lv, B, 8192)
+        plain = hist._torch_flat(codes, lc, vv, n_lv, B)
+        mass = hist._torch_flat(codes, lc, vv.abs(), n_lv, B)
         torch.cuda.synchronize()
         _check(torch.equal(k1, k2), f"n_lv={n_lv}: two launches differ")
         _check(torch.equal(k1[..., 0], plain[..., 0]),
@@ -254,8 +346,8 @@ def phase_kernel(dev) -> dict:
         src = vv[:, None, :].expand(rl, F, V).reshape(-1, V)
         lib = torch.zeros((F * n_lv * B, V), device=dev)
         kernel_ms = _cuda_ms(lambda: hist._cuda_flat(codes, lc, vv, n_lv, B), 20)
-        plain_ms = _cuda_ms(lambda: hist._torch_flat(codes, lc, vv, n_lv, B,
-                                                     8192), 2)
+        plain_ms = _cuda_ms(lambda: hist._torch_flat(codes, lc, vv, n_lv, B),
+                            2)
         library_ms = _cuda_ms(lambda: lib.zero_().index_add_(0, keys, src), 5)
         del keys, src, lib
         nbytes = rl * F * codes.element_size() + rl * 4 + rl * V * 4 \
@@ -363,15 +455,16 @@ def _airlines_plan_inputs(dev, rl: int, widths, B: int, n_lv: int, g):
 
 
 def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
-                   reps: int) -> dict:
+                   reps: int, flat: bool = False) -> dict:
     """One grouped level: kernel vs plain checks and the four timings.
+    ``flat`` takes the flat wrapper instead, ``groups`` then being its one
+    bucket of every feature at width ``B``.
 
     The integer channel is held against the exact per-cell count (int64
-    ``index_add_``, rounded once to float32) and against the plain version
-    wherever that count is below 2^24: above it the plain version's float32
-    running sums no longer count exactly (at 116M rows, n_lv = 1, each
-    7-level DayOfWeek bin weighs ~2.4e7), while the kernel's 64-bit fixed
-    point does."""
+    ``index_add_``, rounded once to float32) and against the plain version,
+    whose float64 sums count exactly and round once too: bit-equal even
+    where a cell weighs more than 2^24 (at 116M rows, n_lv = 1, each 7-level
+    DayOfWeek bin weighs ~2.4e7)."""
     import torch
 
     from h2o_tpu_torch.backend.kernels import hist
@@ -391,25 +484,28 @@ def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
     keys = torch.cat(keys, 1).reshape(-1)
     exact = torch.zeros(n_cells, dtype=torch.int64, device=dev).index_add_(
         0, keys, vv[:, 0].long()[:, None].expand(rl, F).reshape(-1))
-    k1 = hist._cuda_grouped(codes, lc, vv, groups, n_lv, B - 1)
-    k2 = hist._cuda_grouped(codes, lc, vv, groups, n_lv, B - 1)
+
+    def launch():
+        if flat:
+            return (hist._cuda_flat(codes, lc, vv, n_lv, B),)
+        return hist._cuda_grouped(codes, lc, vv, groups, n_lv, B - 1)
+    k1, k2 = launch(), launch()
     # the plain version is timed on its checking call: at 116M rows one
     # call takes seconds, so it runs once
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    plain = hist._torch_grouped(xgs, lc, vv, groups, n_lv, B - 1, 8192)
+    plain = hist._torch_grouped(xgs, lc, vv, groups, n_lv, B - 1)
     stop.record()
-    mass = hist._torch_grouped(xgs, lc, vv.abs(), groups, n_lv, B - 1, 8192)
+    mass = hist._torch_grouped(xgs, lc, vv.abs(), groups, n_lv, B - 1)
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
     k0 = torch.cat([a[..., 0].reshape(-1) for a in k1])
     p0 = torch.cat([p[..., 0].reshape(-1) for p in plain])
     _check(torch.equal(k0, exact.float()),
            f"grouped n_lv={n_lv}: integer channel differs from the exact count")
-    below = exact < 2 ** 24
-    _check(torch.equal(k0[below], p0[below]),
+    _check(torch.equal(k0, p0),
            f"grouped n_lv={n_lv}: integer channel differs from the plain "
-           f"version where its float32 sums are exact")
+           f"version")
     err, rel = 0.0, 0.0
     for (idxs, Bg, _m), a, b, p, m in zip(groups, k1, k2, plain, mass):
         _check(torch.equal(a, b), f"grouped n_lv={n_lv} Bg={Bg}: two "
@@ -419,22 +515,21 @@ def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
         rel = max(rel, float((d[..., 1:] / (m[..., 1:] + 1e-30)).max()))
     _check(rel <= REAL_TOL, f"grouped n_lv={n_lv}: real channels off by "
                             f"{rel:.3g} of the cell mass (limit {REAL_TOL})")
-    over = int((~below).sum())
     del plain, mass, exact
     # yardstick: one index_add_ over the keys into the same packed output
     src = vv[:, None, :].expand(rl, F, V).reshape(-1, V)
     lib = torch.zeros((n_cells, V), device=dev)
-    kernel_ms = _cuda_ms(lambda: hist._cuda_grouped(codes, lc, vv, groups,
-                                                    n_lv, B - 1), reps)
+    kernel_ms = _cuda_ms(launch, reps)
     library_ms = _cuda_ms(lambda: lib.zero_().index_add_(0, keys, src), 3)
     del keys, src, lib
     nbytes = (rl * F * codes.element_size() + rl * 4 + rl * V * 4
               + n_cells * V * 4)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, rl * F * V / F32_OPS_PER_S) * 1e3
     return dict(rows=rl, n_lv=n_lv, max_abs_err=err, max_rel_mass=rel,
-                cells_over_2_24=over, ms=kernel_ms, plain_ms=plain_ms,
+                ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
-                **hist.launch_shape(codes, lc, vv, n_lv, B, groups))
+                **hist.launch_shape(codes, lc, vv, n_lv, B,
+                                    None if flat else groups))
 
 
 def phase_grouped_kernel(dev) -> dict:
@@ -570,6 +665,9 @@ def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
     z = torch.randn((R,), generator=g, device=dev)
     G1, b1 = gram._cuda_gram(X, W, z)
     G2, b2 = gram._cuda_gram(X, W, z)
+    # the plain version's matmuls: cuBLAS sets itself up on its first call
+    # of the process, which no earlier phase makes, so warm it up untimed
+    gram._plain_gram(X[:4096], W[:4096], z[:4096])
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     Gp, bp = gram._plain_gram(X, W, z)
@@ -774,6 +872,158 @@ def phase_glm_card_vs_cpu(dev) -> None:
                            f"want {want}")
 
 
+def _covtype_plan(fr):
+    """The covertype frame's bin codes, edges and histogram plan, as the
+    DRF build makes them (binning is on the frame's device)."""
+    from h2o_tpu_torch.backend.memory import hbm_budget_bytes
+    from h2o_tpu_torch.frame.chunks import BinnedView
+    from h2o_tpu_torch.models.tree.binning import compute_bin_edges_cols
+    from h2o_tpu_torch.models.tree.engine import plan_hist_groups
+
+    names = [n for n in fr.names if n != "Cover_Type"]
+    vecs = [fr.vec(n) for n in names]
+    edges = compute_bin_edges_cols(vecs, np.zeros(len(names), bool), 20,
+                                   seed=42)
+    nedges = (~np.isnan(edges)).sum(axis=1)
+    groups, _blk = plan_hist_groups(nedges, edges.shape[1] + 2, 8192,
+                                    budget_bytes=hbm_budget_bytes(fr.device),
+                                    n_lv_max=2 ** 11)
+    return BinnedView.build(vecs, edges, names=names).matrix, edges, groups
+
+
+def phase_covtype_kernel(dev, fr) -> dict:
+    """The kernel through the wrapper the covertype plan picks, on the
+    frame's own bin codes at 581,120 padded rows, at n_lv = 64, 512 and
+    2,048 (DRF's deepest level at depth 12), V = 3: a bag's integer weights
+    (0 or 1) and two real channels. Returns the plan and per-level rows."""
+    import torch
+
+    codes, edges, groups = _covtype_plan(fr)
+    B = edges.shape[1] + 2
+    flat = groups is None
+    plan = (((tuple(range(codes.shape[1])), B, "onehot"),) if flat
+            else groups)
+    g = torch.Generator(device=dev).manual_seed(54)
+    rl = codes.shape[0]
+    rows = []
+    for n_lv in (64, 512, 2048):
+        lc = torch.randint(0, n_lv, (rl,), generator=g, device=dev,
+                           dtype=torch.int32)
+        vv = torch.randn((rl, 3), generator=g, device=dev)
+        vv[:, 0] = torch.randint(0, 2, (rl,), generator=g, device=dev).float()
+        row = _grouped_level(dev, codes, lc, vv, plan, n_lv, B, 10, flat=flat)
+        row["wrapper"] = "flat" if flat else "grouped"
+        print("level_hist_covtype", json.dumps(row), flush=True)
+        rows.append(row)
+        del lc, vv
+    torch.cuda.empty_cache()
+    return dict(wrapper="flat" if flat else "grouped", B=B,
+                hist_groups=None if flat else
+                [[list(i), w, m] for i, w, m in groups], per_level=rows)
+
+
+def _class_probs(model, fr) -> "torch.Tensor":
+    import torch
+
+    pred = model.predict(fr)
+    return torch.stack([pred.vec(f"p{d}").data[:fr.nrow]
+                        for d in model.output.response_domain], dim=1)
+
+
+def phase_drf_train(dev, fr, ntrees: int, xrt: bool, what: str,
+                    wrapper: str) -> int:
+    """DRF (or XRT) on the covertype frame end to end; returns the
+    launches of the wrapper its plan picks, which must be ``wrapper`` (the
+    one ``level_hist_covtype`` held against its plain version)."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _drf(fr, ntrees, xrt=xrt)   # train_model synchronises the card
+    train_s = time.perf_counter() - t0
+    flat, grouped = hist.LAUNCHES, hist.GROUPED_LAUNCHES
+    picked, other = (grouped, flat) if model.cfg.hist_groups else (flat,
+                                                                   grouped)
+    m = model.output.training_metrics
+    t0 = time.perf_counter()
+    p = _class_probs(model, fr)
+    finite = bool(torch.isfinite(p).all())
+    row_err = float((p.sum(dim=1) - 1).abs().max())
+    predict_s = time.perf_counter() - t0
+    pri = np.asarray(COVTYPE_COUNTS) / COVTYPE_ROWS
+    prior_logloss = float(-(pri * np.log(pri)).sum())
+    K, depth = len(COVTYPE_COUNTS), model.cfg.max_depth
+    print(what, json.dumps(dict(
+        rows=fr.nrow, ntrees=ntrees, classes=K, max_depth=depth,
+        mtries=model.cfg.mtries, train_s=train_s, predict_s=predict_s,
+        description=m.description, oob_logloss=m.logloss,
+        prior_logloss=prior_logloss,
+        mean_per_class_error=m.mean_per_class_error, oob_rows=m.nobs,
+        wrapper="grouped" if model.cfg.hist_groups else "flat",
+        launches=picked, other_launches=other,
+        gram_launches=gram.GRAM_LAUNCHES, prob_row_sum_err=row_err,
+        split_nodes=int((model.forest["feat"] >= 0).sum()),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)),
+        flush=True)
+    _check(("grouped" if model.cfg.hist_groups else "flat") == wrapper,
+           f"{what}: the plan picked another wrapper than {wrapper}")
+    _check(picked == ntrees * K * 12 and depth == 12,
+           f"{what}: {picked} launches of the plan's wrapper, want "
+           f"{ntrees} x {K} x 12")
+    _check(other == 0 and gram.GRAM_LAUNCHES == 0,
+           f"{what}: {other} launches of the other histogram wrapper, "
+           f"{gram.GRAM_LAUNCHES} Gram launches")
+    _check(m.description == "Reported on OOB data",
+           f"{what}: training metrics '{m.description}', not out of bag")
+    _check(bool(np.isfinite(m.logloss)) and m.logloss < prior_logloss,
+           f"{what}: OOB logloss {m.logloss} not below the prior's "
+           f"{prior_logloss}")
+    _check(m.mean_per_class_error < 6 / 7,
+           f"{what}: mean per-class error {m.mean_per_class_error}")
+    _check(finite and p.shape == (fr.nrow, K) and row_err <= 1e-5,
+           f"{what}: class probabilities not finite or rows off 1 by "
+           f"{row_err}")
+    return picked
+
+
+def phase_drf_card_vs_cpu(dev) -> None:
+    """The covertype DRF on 100,000 rows x 5 iterations (35 trees, depth
+    12), on the card and on the CPU: integer channels, so identical."""
+    import torch
+
+    rows, ntrees = 100_000, 5
+    models, probs = {}, {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        fr = _covtype_frame(rows, d)
+        models[d] = _drf(fr, ntrees)
+        probs[d] = _class_probs(models[d], fr).cpu().numpy()
+        print(f"drf_card_vs_cpu {d}: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    a, b = models[dev], models["cpu"]
+    for k in ("feat", "nanL", "val"):
+        _check(torch.equal(a.forest[k].cpu(), b.forest[k]),
+               f"drf 100k rows: {k} differs between card and CPU")
+    _check(np.array_equal(_split_bins(a), _split_bins(b)),
+           "drf 100k rows: split bins differ between card and CPU")
+    ma, mb = a.output.training_metrics, b.output.training_metrics
+    _check(ma.nobs == mb.nobs and np.array_equal(ma.confusion_matrix,
+                                                 mb.confusion_matrix),
+           "drf 100k rows: out-of-bag counts differ between card and CPU")
+    pred_err = float(np.abs(probs[dev] - probs["cpu"]).max())
+    print("drf_card_vs_cpu", json.dumps(dict(
+        rows=rows, ntrees=ntrees, split_nodes=int((a.forest["feat"] >= 0)
+                                                  .sum()),
+        oob_rows=ma.nobs, oob_logloss_card=ma.logloss,
+        oob_logloss_cpu=mb.logloss, pred_max_abs_err=pred_err)), flush=True)
+    _check(pred_err <= CPU_TOL, f"drf 100k rows: predictions off by "
+                                f"{pred_err}")
+
+
 def main() -> int:
     import torch
 
@@ -823,23 +1073,54 @@ def main() -> int:
         d, higgs, "glm_cod_train", solver="COORDINATE_DESCENT"))
     del higgs
     run("glm_card_vs_cpu", phase_glm_card_vs_cpu)
+    t0 = time.perf_counter()
+    cov = _covtype_frame(COVTYPE_ROWS, dev)
+    print(f"covtype frame {COVTYPE_ROWS}x54: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    covtype = run("level_hist_covtype", lambda d: phase_covtype_kernel(d, cov))
+    drf_launches = run("drf_train", lambda d: phase_drf_train(
+        d, cov, 50, False, "drf_train", covtype["wrapper"]))
+    xrt_launches = run("xrt_train", lambda d: phase_drf_train(
+        d, cov, 10, True, "xrt_train", covtype["wrapper"]))
+    del cov
+    run("drf_card_vs_cpu", phase_drf_card_vs_cpu)
     print("phase_s", json.dumps(phases), flush=True)
+    # the covertype path's numbers join the entry of the wrapper its plan
+    # picks: its launches, and its three levels' sums
+    levels = covtype["per_level"]
+    cov_nums = dict(
+        n_lv=[r["n_lv"] for r in levels],
+        launches_by_path=dict(drf_train=drf_launches, xrt_train=xrt_launches),
+        max_abs_err=max(r["max_abs_err"] for r in levels),
+        **{k: sum(r[k] for r in levels)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        per_level_ms=[r["ms"] for r in levels], bound_by="bytes")
+    paths = {"level_hist": dict(train=launches),
+             "level_hist_grouped": dict(airlines_train=grouped_launches),
+             "gram": dict(glm_train=gram_launches)}
+    cov_entry = ("level_hist" if covtype["wrapper"] == "flat"
+                 else "level_hist_grouped")
+    paths[cov_entry].update(cov_nums["launches_by_path"])
     hist_src = "h2o_tpu_torch/csrc/level_hist.cu"
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=replaces,
-             launches=n, max_abs_err=nums["max_abs_err"], ms=nums["ms"],
-             plain_ms=nums["plain_ms"], bound_ms=nums["bound_ms"],
-             bound_by=nums.get("bound_by", "bytes"),
-             library_ms=nums["library_ms"])
-        for name, src, replaces, n, nums in (
+    entries = []
+    for name, src, replaces, nums in (
             ("level_hist", hist_src, "h2o_tpu/backend/kernels/hist.py:158",
-             launches, flat),
+             flat),
             ("level_hist_grouped", hist_src,
-             "h2o_tpu/backend/kernels/hist.py:181", grouped_launches,
-             grouped),
+             "h2o_tpu/backend/kernels/hist.py:181", grouped),
             ("gram", "h2o_tpu_torch/csrc/gram.cu",
-             "h2o_tpu/backend/kernels/gram.py:79", gram_launches,
-             gram_nums))]}), flush=True)
+             "h2o_tpu/backend/kernels/gram.py:79", gram_nums)):
+        e = dict(name=name, route="cuda", source=src, replaces=replaces,
+                 launches=sum(paths[name].values()),
+                 launches_by_path=paths[name],
+                 max_abs_err=nums["max_abs_err"], ms=nums["ms"],
+                 plain_ms=nums["plain_ms"], bound_ms=nums["bound_ms"],
+                 bound_by=nums.get("bound_by", "bytes"),
+                 library_ms=nums["library_ms"])
+        if name == cov_entry:
+            e["covtype"] = cov_nums
+        entries.append(e)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

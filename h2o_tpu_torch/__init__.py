@@ -4,12 +4,15 @@ The JAX package ``h2o_tpu`` stays the reference; this package mirrors its
 module layout so each port module sits at the same relative path as its
 counterpart, and never imports ``jax`` or anything of ``h2o_tpu``.
 
-Scope so far: GBM (bernoulli and gaussian) on numeric and categorical
-features, trained and scored end to end — ``Frame``/``Vec`` on torch
-tensors, quantile and per-level bin edges and int8/int16 bin codes, the tree
-engine's level loop over the level-histogram kernel (flat or width-bucketed
-plans, ``backend/kernels/hist.py``, CUDA C++ in ``csrc/level_hist.cu``),
-categorical set splits, and binomial/regression metrics; GLM (gaussian,
+Scope so far: GBM (bernoulli, gaussian, multinomial) and DRF/XRT on
+numeric and categorical features, trained and scored end to end —
+``Frame``/``Vec`` on torch tensors, quantile, uniform, random and per-level
+bin edges and int8/int16 bin codes, the tree engine's level loop over the
+level-histogram kernel (flat or width-bucketed plans,
+``backend/kernels/hist.py``, CUDA C++ in ``csrc/level_hist.cu``), row and
+column sampling on ``jax.random``'s threefry streams reproduced bit for bit
+(``utils/threefry.py``), categorical set splits, out-of-bag scoring, and
+binomial/multinomial/regression metrics; GLM (gaussian,
 binomial, quasibinomial, poisson, gamma, tweedie, negativebinomial) through
 IRLSM or coordinate descent, with or without lambda search — ``DataInfo``'s
 design expansion (``models/datainfo.py``) and the IRLS loop over the weighted
@@ -24,8 +27,11 @@ for a CPU tensor, the hand-written kernel for a CUDA tensor.
 
 from .frame.frame import Frame
 from .frame.vec import Vec
+from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
+                         XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.glm import GLM, GLMModel, GLMParameters
 
-__all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters", "GLM",
+__all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters", "DRF",
+           "DRFModel", "DRFParameters", "XRT", "XRTParameters", "GLM",
            "GLMModel", "GLMParameters"]

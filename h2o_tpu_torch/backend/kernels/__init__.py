@@ -39,18 +39,6 @@ _LIB_LOCK = threading.Lock()
 BUILD_LOG = ""
 
 
-def pow2_block_rows(rl: int, want: int) -> int:
-    """Largest power-of-two divisor of ``rl`` up to ``want`` (``rl`` itself
-    when none divides) — copied verbatim from the reference, because the
-    row-block partition fixes the plain version's summation order."""
-    if rl % want == 0:
-        return want
-    b = 1
-    while b * 2 <= want and rl % (b * 2) == 0:
-        b *= 2
-    return b if rl % b == 0 else rl
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):

@@ -6,12 +6,15 @@ or per width bucket of ``engine.plan_hist_groups`` — one (Fg, n_lv, Bg, V)
 accumulator per group, each group's NA bucket in its last slot. Two forms of
 each:
 
-- ``_torch_flat`` / ``_torch_grouped``: the plain versions, ports of the
-  reference's ``_xla_flat`` / ``_xla_grouped`` and their per-block math
-  (``_flat_contrib``, ``_one_group_contrib``, ``_group_contrib``) — row
-  blocks summed in ascending order, one-hot products or, for ``segsum``
-  groups, an ``index_add_`` over (feature, node, bin) keys. They run for CPU
-  tensors and are the oracles the card is checked against.
+- ``_torch_flat`` / ``_torch_grouped``: the plain versions of the
+  reference's ``_xla_flat`` / ``_xla_grouped``: each row's channels summed
+  into its (feature, node, bin) cell, per width bucket (flat: one bucket of
+  every feature at the full width), as one keyed ``scatter_add_`` in
+  float64 — the reference's ``segment_sum``, which its one-hot products
+  equal up to the order and rounding of the adds. Their work does not grow
+  with the level's node count, as a one-hot product over 2,048 nodes would.
+  They run for CPU tensors and are the oracles the card is checked
+  against.
 - ``_cuda_flat`` / ``_cuda_grouped``: wrappers of the hand-written Hopper
   kernel ``csrc/level_hist.cu``, which replaces both ``hist.py::_pallas_flat``
   and ``hist.py::_pallas_grouped``: a deterministic fixed-point scatter-add
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check, load_library, pow2_block_rows
+from . import check, load_library
 
 #: launches of the kernel through the flat wrapper in this process — a plain
 #: counter a run reads to show its main path went through the kernel
@@ -56,82 +59,62 @@ _MAX_CLUSTER = 8
 
 
 # ---------------------------------------------------------------------------
-# plain versions — the per-block math of the reference, in torch
+# plain versions — keyed sums, in torch
 # ---------------------------------------------------------------------------
-def _node_outer(l, vv, n_lv: int) -> torch.Tensor:
-    """(rb, n_lv, V) channel values routed to the row's node slot: an outer
-    product against the node one-hot (exact, one 1.0 per row)."""
-    n_oh = (l[:, None] == torch.arange(n_lv, device=l.device)).to(torch.float32)
-    return n_oh[:, :, None] * vv[:, None, :]
-
-
-def _flat_contrib(xb, l, vv, n_lv: int, nbins_tot: int) -> torch.Tensor:
-    """One row block's (F, n_lv, B, V) contribution in flat bin space. A
-    code or node id out of range matches no one-hot column and adds
-    nothing, as ``jax.nn.one_hot`` does."""
-    xb = xb.to(torch.int32)
-    b_oh = (xb[:, :, None] == torch.arange(nbins_tot, device=xb.device)
-            ).to(torch.float32)                                    # (rb, F, B)
-    return torch.einsum("rnv,rfb->fnbv", _node_outer(l, vv, n_lv), b_oh)
-
-
-def _one_group_contrib(xg, a, l, vv, Bg: int, mode: str, n_lv: int,
-                       na_global: int) -> torch.Tensor:
-    """One width bucket's (Fg, n_lv, Bg, V) block contribution from the
-    group's gathered code block ``xg``; the global NA code remaps to the
-    group's last slot. ``segsum`` groups sum by (feature, node, bin) keys with
-    ``index_add_`` (the reference's ``segment_sum``), ``onehot`` groups by the
-    one-hot product; codes outside [0, Bg) and node ids outside [0, n_lv) add
-    nothing in both (the reference's segment sum reads only in-range keys,
-    which is all the engine produces)."""
-    xg = xg.to(torch.int32)
+def _group_keys(xg, l, Bg: int, n_lv: int, na_global: int,
+                V: int) -> torch.Tensor:
+    """Each (row, feature, channel) value's flat index into one width
+    bucket's (Fg, n_lv, Bg, V) block, the global NA code remapped to the
+    group's last slot; codes outside [0, Bg) and node ids outside [0, n_lv)
+    go to the dump cell Fg * n_lv * Bg and add nothing, as in the reference
+    (its one-hot has no column for them, its segment sum drops them)."""
+    xg = xg.to(torch.int64)
     Fg = xg.shape[1]
     xg = torch.where(xg == na_global, Bg - 1, xg)
-    if mode == "segsum":
-        rb, V = vv.shape
-        n = Fg * n_lv * Bg
-        fi = torch.arange(Fg, dtype=torch.int32, device=xg.device)[None, :]
-        seg = (fi * n_lv + l[:, None]) * Bg + xg                   # (rb, Fg)
-        ok = (xg >= 0) & (xg < Bg) & (l[:, None] >= 0) & (l[:, None] < n_lv)
-        seg = torch.where(ok, seg, n).reshape(-1).to(torch.int64)  # n = dump
-        data = vv[:, None, :].expand(rb, Fg, V).reshape(-1, V)
-        h = torch.zeros((n + 1, V), dtype=torch.float32, device=vv.device)
-        return h.index_add_(0, seg, data)[:n].reshape(Fg, n_lv, Bg, V)
-    b_oh = (xg[:, :, None] == torch.arange(Bg, device=xg.device)
-            ).to(torch.float32)                                    # (rb, Fg, Bg)
-    return torch.einsum("rnv,rfb->fnbv", a, b_oh)
+    lc = l.to(torch.int64)[:, None]
+    fi = torch.arange(Fg, device=xg.device)[None, :]
+    ok = (xg >= 0) & (xg < Bg) & (lc >= 0) & (lc < n_lv)
+    cell = torch.where(ok, (fi * n_lv + lc) * Bg + xg, Fg * n_lv * Bg)
+    return (cell[:, :, None] * V
+            + torch.arange(V, device=xg.device)).reshape(-1)
 
 
-def _group_contrib(xgs, l, vv, groups, n_lv: int, na_global: int):
-    a = _node_outer(l, vv, n_lv)   # shared across onehot groups — exact
-    return tuple(_one_group_contrib(xg, a, l, vv, Bg, mode, n_lv, na_global)
-                 for xg, (_idxs, Bg, mode) in zip(xgs, groups))
-
-
-def _torch_flat(Xb, lc, vv, n_lv: int, nbins_tot: int, rb: int) -> torch.Tensor:
-    Rl, F = Xb.shape
-    hist = torch.zeros((F, n_lv, nbins_tot, vv.shape[1]), dtype=torch.float32,
-                       device=Xb.device)
-    for s in range(0, Rl, rb):
-        hist += _flat_contrib(Xb[s:s + rb], lc[s:s + rb], vv[s:s + rb],
-                              n_lv, nbins_tot)
-    return hist
+#: rows per step of the plain versions: bounds their (rows, Fg, V) keys
+_PLAIN_ROWS = 1 << 16
 
 
 def _torch_grouped(xgs, lc, vv, groups, n_lv: int, na_global: int,
-                   rb: int) -> tuple:
-    """Per-group accumulators over ascending row blocks; ``xgs`` are the
-    groups' gathered code columns."""
+                   rb: int = _PLAIN_ROWS) -> tuple:
+    """Per-group accumulators; ``xgs`` are the groups' gathered code
+    columns. One ``scatter_add_`` per step of ``rb`` rows into one float64
+    buffer per group, rounded to float32 once: on the CPU the adds run in
+    row order, so the result does not depend on ``rb``, and in float64 the
+    order hardly matters, so each cell comes out as the card kernel's exact
+    fixed-point sum does, rounded once (a float32 running sum over a million
+    rows would drift by ~1e-3 of the cell and move near-tied splits)."""
     V = vv.shape[1]
-    hists = tuple(torch.zeros((len(idxs), n_lv, Bg, V), dtype=torch.float32,
-                              device=vv.device)
-                  for idxs, Bg, _mode in groups)
-    for s in range(0, lc.shape[0], rb):
-        cs = _group_contrib([xg[s:s + rb] for xg in xgs], lc[s:s + rb],
-                            vv[s:s + rb], groups, n_lv, na_global)
-        for h, c in zip(hists, cs):
-            h += c
-    return hists
+    hists = []
+    for xg, (idxs, Bg, _mode) in zip(xgs, groups):
+        n = len(idxs) * n_lv * Bg * V
+        h = torch.zeros(n + V, dtype=torch.float64, device=vv.device)
+        for s in range(0, lc.shape[0], rb):
+            keys = _group_keys(xg[s:s + rb], lc[s:s + rb], Bg, n_lv,
+                               na_global, V)
+            v = vv[s:s + rb].double()
+            h.scatter_add_(0, keys, v[:, None, :].expand(
+                v.shape[0], len(idxs), V).reshape(-1))
+        hists.append(h[:n].to(torch.float32).view(len(idxs), n_lv, Bg, V))
+    return tuple(hists)
+
+
+def _torch_flat(Xb, lc, vv, n_lv: int, nbins_tot: int,
+                rb: int = _PLAIN_ROWS) -> torch.Tensor:
+    """The flat plan: one bucket of every feature at width ``nbins_tot``
+    (its last slot the NA bucket) -> (F, n_lv, nbins_tot, V)."""
+    F = Xb.shape[1]
+    return _torch_grouped([Xb], lc, vv, ((tuple(range(F)), nbins_tot,
+                                          "onehot"),),
+                          n_lv, nbins_tot - 1, rb)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -379,18 +362,18 @@ def level_hist_one_group(xg, lc, vv, *, Bg: int, mode: str, n_lv: int,
                          nbins_tot: int, block: int) -> torch.Tensor:
     """One width bucket accumulated on its own (the reference's async-psum
     shape): ``xg`` holds the group's code columns. Returns (Fg, n_lv, Bg,
-    V). A one-group call of the same kernel on the card."""
+    V). A one-group call of the same kernel on the card; ``block`` is kept
+    for the reference's signature (the grouped plain version needs none)."""
     groups1 = ((tuple(range(xg.shape[1])), Bg, mode),)
     _check_device(xg.device)
     if xg.device.type == "cuda":
         return _cuda_grouped(xg, lc, vv, groups1, n_lv, nbins_tot - 1)[0]
-    return _torch_grouped([xg], lc, vv, groups1, n_lv, nbins_tot - 1,
-                          pow2_block_rows(lc.shape[0], block))[0]
+    return _torch_grouped([xg], lc, vv, groups1, n_lv, nbins_tot - 1)[0]
 
 
 def level_hist_blocks(Xb, lc, vv, *, n_lv: int, nbins_tot: int, block: int,
                       groups=None):
-    """Per-level histogram accumulation over row blocks.
+    """Per-level histogram accumulation.
 
     ``Xb`` (Rl, F) int8/int16/int32 bin codes; ``lc`` (Rl,) int32 local
     node ids in [0, n_lv); ``vv`` (Rl, V) float32 channel values already
@@ -398,17 +381,15 @@ def level_hist_blocks(Xb, lc, vv, *, n_lv: int, nbins_tot: int, block: int,
     nbins_tot, V) accumulator; grouped returns a tuple with one (Fg, n_lv,
     Bg, V) accumulator per normalized group, each group's NA bucket in its
     LAST slot. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel.
+    the kernel. ``block`` is kept for the reference's signature.
     """
     _check_device(Xb.device)
     cuda = Xb.device.type == "cuda"
     if groups is None:
         if cuda:
             return _cuda_flat(Xb, lc, vv, n_lv, nbins_tot)
-        return _torch_flat(Xb, lc, vv, n_lv, nbins_tot,
-                           pow2_block_rows(Xb.shape[0], block))
+        return _torch_flat(Xb, lc, vv, n_lv, nbins_tot)
     if cuda:
         return _cuda_grouped(Xb, lc, vv, groups, n_lv, nbins_tot - 1)
     xgs = [Xb[:, list(idxs)] for idxs, _Bg, _mode in groups]
-    return _torch_grouped(xgs, lc, vv, groups, n_lv, nbins_tot - 1,
-                          pow2_block_rows(Xb.shape[0], block))
+    return _torch_grouped(xgs, lc, vv, groups, n_lv, nbins_tot - 1)

@@ -1,7 +1,7 @@
 """Distributions & link functions (``h2o_tpu/models/distributions.py``):
-gaussian and bernoulli, the families of this slice. Each supplies the
-link/linkinv pair, the intercept-only fit ``init_f``, and the per-row
-gradient and hessian of the deviance on the link scale."""
+gaussian, bernoulli and multinomial, the families ported so far. Each
+supplies the link/linkinv pair, the intercept-only fit ``init_f``, and the
+per-row gradient and hessian of the deviance on the link scale."""
 
 from __future__ import annotations
 
@@ -74,7 +74,24 @@ class Bernoulli(Distribution):
         return -2 * w * (y * torch.log(p) + (1 - y) * torch.log(1 - p))
 
 
-_PORTED = {"gaussian": Gaussian, "bernoulli": Bernoulli}
+class Multinomial(Distribution):
+    """Per-class bernoulli-style trees with softmax normalization; the GBM
+    builder computes the softmax and the one-hot targets itself."""
+
+    name = "multinomial"
+
+    def gradient(self, y_1hot, p, w):
+        return w * (p - y_1hot)
+
+    def hessian(self, y_1hot, p, w):
+        return w * p * (1 - p)
+
+    def deviance(self, y_1hot, logp, w):
+        return -2 * w * torch.sum(y_1hot * logp, dim=-1)
+
+
+_PORTED = {"gaussian": Gaussian, "bernoulli": Bernoulli,
+           "multinomial": Multinomial}
 
 
 def get_distribution(name: str) -> Distribution:
@@ -83,4 +100,4 @@ def get_distribution(name: str) -> Distribution:
         return _PORTED[key]()
     raise NotImplementedError(
         f"distribution '{name}' is not ported yet (ROADMAP Queue 1 item 6; "
-        f"this slice has {sorted(_PORTED)})")
+        f"the port has {sorted(_PORTED)})")

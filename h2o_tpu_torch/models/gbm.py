@@ -1,15 +1,19 @@
 """GBM — gradient boosting on the shared tree engine
-(``h2o_tpu/models/gbm.py``), bernoulli/gaussian slice with numeric and
-categorical features.
+(``h2o_tpu/models/gbm.py``): bernoulli, gaussian and multinomial, numeric
+and categorical features, row and column sampling; and the engine's DRF mode
+that `drf.py` builds on.
 
-The build: feature selection and response info, bin edges (quantile cuts
-for numeric features, one cut per level for categorical ones) and the
-int8/int16 binned view, the histogram plan (flat, or width-bucketed groups
-for mixed bin widths), categorical set splits whenever a feature is
-categorical, the intercept ``f0``, then the chunk loop over
-``score_tree_interval`` — each chunk grows its trees on the device
-(`engine.train_trees`) and scores the carried margin once. Options the slice
-does not reproduce raise ``NotImplementedError`` naming the ROADMAP item.
+The build: feature selection and response info, bin edges (quantile,
+uniform or random cuts for numeric features, one cut per level for
+categorical ones) and the int8/int16 binned view, the histogram plan (flat,
+or width-bucketed groups for mixed bin widths), categorical set splits
+whenever a feature is categorical, the intercept ``f0`` (class priors for
+multinomial, zeros for DRF), the tree keys ``split(PRNGKey(seed), ntrees)``
+(seed -1 -> 1234), then the chunk loop over ``score_tree_interval`` — each
+chunk grows its trees on the device (`engine.train_trees`) and scores once:
+the carried margin, or for a row-sampled DRF the out-of-bag outputs.
+Options the port does not reproduce raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 from ..backend.memory import hbm_budget_bytes
 from ..frame.chunks import BinnedView
 from ..parallel.mesh import resolve_device
-from .distributions import Bernoulli, Gaussian, get_distribution
-from .metrics import make_metrics
+from ..utils import threefry
+from .distributions import Bernoulli, Gaussian, Multinomial, get_distribution
+from .metrics import check_auc_type, make_metrics
 from .model_base import Model, ModelBuilder, ModelOutput, Parameters
 from .tree.binning import compute_bin_edges_cols
 from .tree.engine import (TreeConfig, plan_hist_groups, predict_forest,
@@ -73,8 +78,8 @@ class GBMModel(Model):
     def __init__(self, params, output, forest, f0, dist, cfg: TreeConfig,
                  is_cat, edges=None, cat_nedges=None):
         super().__init__(params, output)
-        self.forest = forest    # feat/thr/nanL/val/gain (T, N), catd (T, N, B)
-        self.f0 = f0            # 0-d float32 tensor: initial link prediction
+        self.forest = forest    # feat/thr/nanL/val/gain (T,[K,]N), catd (...,B)
+        self.f0 = f0            # float32 tensor: 0-d, or (K,) per class
         self.dist = dist
         self.cfg = cfg
         self.is_cat = is_cat    # (F,) bool numpy: categorical features
@@ -82,6 +87,10 @@ class GBMModel(Model):
         # per-feature cut counts (categorical level -> bin map: bin =
         # min(level, n_edges)); only read when cfg.use_sets
         self.cat_nedges = cat_nedges
+
+    @property
+    def ntrees(self) -> int:
+        return int(self.forest["feat"].shape[0])
 
     def _set_args(self):
         """(catd, iscat, nedges) for `predict_forest` on the forest's device
@@ -93,18 +102,20 @@ class GBMModel(Model):
                 torch.from_numpy(np.asarray(self.is_cat, np.bool_)).to(dev),
                 torch.from_numpy(np.asarray(self.cat_nedges, np.int64)).to(dev))
 
-    @staticmethod
-    def from_reference(forest, f0, edges, names, domains, cfg_fields, *,
+    @classmethod
+    def from_reference(cls, forest, f0, edges, names, domains, cfg_fields, *,
                        category: str = "Binomial", response_domain=None,
                        device=None) -> "GBMModel":
-        """Carry a JAX-trained GBM over: ``forest`` is the reference's forest
-        dict (``feat, thr, nanL, val, gain, catd`` as numpy arrays in the
-        ``gbm.py:_assemble_forest`` layout), ``f0`` its intercept, ``edges``
-        its bin edges, ``names``/``domains`` the feature columns,
-        ``cfg_fields`` its TreeConfig fields. The model's ``is_cat`` (the
-        features with a domain) and ``cat_nedges`` (each edge row's cut
-        count) follow from these as in the reference's build. The port model
-        scores the same rows as the reference model."""
+        """Carry a JAX-trained tree model over: ``forest`` is the
+        reference's forest dict (``feat, thr, nanL, val, gain, catd`` as
+        numpy arrays in the ``gbm.py:_assemble_forest`` layout, (T, K, N) for
+        a multinomial forest), ``f0`` its intercept (scalar, or (K,)),
+        ``edges`` its bin edges, ``names``/``domains`` the feature columns,
+        ``cfg_fields`` its TreeConfig fields (``drf_mode`` marks a DRF or
+        XRT forest). The model's ``is_cat`` (the features with a domain) and
+        ``cat_nedges`` (each edge row's cut count) follow from these as in
+        the reference's build. The port model scores the same rows as the
+        reference model."""
         cfg = TreeConfig(**{k: v for k, v in dict(cfg_fields).items()
                             if k not in _JAX_ONLY_CFG})
         cfg.check_supported()
@@ -121,63 +132,119 @@ class GBMModel(Model):
         output.model_category = category
         if category == "Binomial":
             output.response_domain = list(response_domain or ["0", "1"])
-            dist = Bernoulli()
-        elif category == "Regression":
-            dist = Gaussian()
-        else:
-            raise NotImplementedError(f"{category} models are not ported "
-                                      f"yet (ROADMAP Queue 1 item 6)")
+        elif category == "Multinomial":
+            output.response_domain = list(response_domain)
+        # DRF leaves are response means: the reference's DRF scores through
+        # Gaussian's identity link
+        dist = (Gaussian() if cfg.drf_mode else
+                {"Binomial": Bernoulli, "Regression": Gaussian,
+                 "Multinomial": Multinomial}[category]())
         params = GBMParameters(ntrees=ft["feat"].shape[0],
                                max_depth=cfg.max_depth)
-        f0_t = torch.tensor(float(np.asarray(f0)), dtype=torch.float32,
-                            device=dev)
-        return GBMModel(params, output, ft, f0_t, dist, cfg, is_cat,
-                        edges=edges, cat_nedges=(~np.isnan(edges)).sum(
-                            axis=1).astype(np.int32))
+        f0_t = torch.from_numpy(np.array(f0, np.float32)).to(dev)
+        return cls(params, output, ft, f0_t, dist, cfg, is_cat, edges=edges,
+                   cat_nedges=(~np.isnan(edges)).sum(axis=1).astype(np.int32))
 
     def _raw_f(self, X) -> torch.Tensor:
+        """f0 plus the summed trees: (R,), or (R, K); DRF averages them."""
         fo = self.forest
         catd, iscat, nedges = self._set_args()
-        return self.f0 + predict_forest(X, fo["feat"], fo["thr"], fo["nanL"],
-                                        fo["val"], self.cfg.max_depth,
-                                        catd=catd, iscat=iscat, nedges=nedges)
+        s = predict_forest(X, fo["feat"], fo["thr"], fo["nanL"], fo["val"],
+                           self.cfg.max_depth, catd=catd, iscat=iscat,
+                           nedges=nedges)
+        if self.cfg.drf_mode:
+            return self.f0 + s / max(self.ntrees, 1)
+        return self.f0 + s
 
     def score0(self, X: torch.Tensor) -> torch.Tensor:
+        cat = self.output.model_category
         f = self._raw_f(X)
-        if self.output.model_category == "Regression":
+        if cat == "Regression":
             return self.dist.linkinv(f)
-        p1 = self.dist.linkinv(f)
-        # >= matches the MOJO reader and the reference's getPrediction
-        label = (p1 >= 0.5).to(torch.float32)
-        return torch.stack([label, 1 - p1, p1], dim=1)
+        if cat == "Binomial":
+            p1 = (torch.clamp(f, 0.0, 1.0) if self.cfg.drf_mode
+                  else self.dist.linkinv(f))
+            # >= matches the MOJO reader and the reference's getPrediction
+            label = (p1 >= 0.5).to(torch.float32)
+            return torch.stack([label, 1 - p1, p1], dim=1)
+        if self.cfg.drf_mode:
+            p = torch.clamp(f, 1e-9, 1.0)
+            p = p / torch.sum(p, dim=1, keepdim=True)
+        else:
+            p = _softmax(f, dim=1)
+        label = torch.argmax(p, dim=1).to(torch.float32)
+        return torch.cat([label[:, None], p], dim=1)
 
 
-def _metrics_raw(category, dist, f):
-    """Carried link-scale margin -> score0 layout, for training metrics."""
+def _softmax(f, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax``'s formula, so both packages round alike."""
+    e = torch.exp(f - torch.amax(f, dim=dim, keepdim=True))
+    return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+def _metrics_raw(category, dist, f, drf_mode: bool, ntrees: int):
+    """Carried link-scale margin -> score0 layout, for training metrics.
+    DRF carries the sum of its trees' leaf means: the prediction is their
+    average."""
+    nt = float(max(ntrees, 1))
     if category == "Regression":
-        return dist.linkinv(f)
-    p1 = dist.linkinv(f)
-    return torch.stack([(p1 > 0.5).to(torch.float32), 1 - p1, p1], dim=1)
+        return f / nt if drf_mode else dist.linkinv(f)
+    if category == "Binomial":
+        p1 = torch.clamp(f / nt, 0, 1) if drf_mode else dist.linkinv(f)
+        return torch.stack([(p1 > 0.5).to(torch.float32), 1 - p1, p1], dim=1)
+    if drf_mode:
+        p = torch.clamp(f.T / nt, 1e-9, 1.0)
+        p = p / torch.sum(p, dim=1, keepdim=True)
+    else:
+        p = _softmax(f, dim=0).T
+    label = torch.argmax(p, dim=1).to(torch.float32)
+    return torch.cat([label[:, None], p], dim=1)
+
+
+def _oob_metrics(category, osum, ocnt, y, ymask, w, auc_type="AUTO"):
+    """Metrics over the out-of-bag outputs: rows never out of bag (tiny
+    forests) are left out, like the reference's OOB scorer. None when no
+    row was."""
+    seen = ocnt > 0
+    if not bool((seen & ymask).any()):
+        return None
+    cnt = torch.clamp(ocnt, min=1.0)
+    ym = torch.where(ymask & seen, y, torch.nan)
+    if category == "Regression":
+        raw = osum / cnt
+    elif category == "Binomial":
+        p1 = torch.clamp(osum / cnt, 0.0, 1.0)
+        raw = torch.stack([(p1 > 0.5).to(torch.float32), 1 - p1, p1], dim=1)
+    else:  # per-class sums (K, R)
+        p = torch.clamp(osum / cnt[None, :], 1e-9, 1.0).T
+        p = p / torch.sum(p, dim=1, keepdim=True)
+        label = torch.argmax(p, dim=1).to(torch.float32)
+        raw = torch.cat([label[:, None], p], dim=1)
+    return make_metrics(category, ym, raw, w, auc_type=auc_type)
 
 
 class GBM(ModelBuilder):
     algo_name = "gbm"
+    drf_mode = False
+    model_class = GBMModel
     _constant_response_check = True  # `hex/tree/SharedTree.init` check
 
     def _validate(self):
         super()._validate()
         p = self.params
-        for bad, what in ((p.monotone_constraints, "monotone_constraints"),
-                          (p.interaction_constraints, "interaction_constraints"),
-                          (p.calibrate_model, "calibrate_model"),
+        for bad, what in ((p.monotone_constraints,
+                           "monotone_constraints (ROADMAP Queue 1 item 5)"),
+                          (p.interaction_constraints,
+                           "interaction_constraints (ROADMAP Queue 1 item 5)"),
+                          (p.calibrate_model,
+                           "calibrate_model (ROADMAP Queue 1 item 6)"),
                           (p.custom_distribution_func is not None,
-                           "custom distributions")):
+                           "custom distributions (ROADMAP Queue 1 item 6)")):
             if bad:
-                raise NotImplementedError(
-                    f"gbm: {what} is not ported yet (ROADMAP Queue 1 items "
-                    f"5-6)")
+                raise NotImplementedError(f"{self.algo_name}: {what} is not "
+                                          f"ported yet")
 
-    def _tree_config(self, nbins: int) -> TreeConfig:
+    def _tree_config(self, K: int, nbins: int) -> TreeConfig:
         p = self.params
         return TreeConfig(
             ntrees=p.ntrees, max_depth=p.max_depth, nbins=nbins,
@@ -187,13 +254,51 @@ class GBM(ModelBuilder):
             sample_rate=p.sample_rate, col_sample_rate=p.col_sample_rate,
             col_sample_rate_per_tree=p.col_sample_rate_per_tree,
             col_sample_rate_change_per_level=p.col_sample_rate_change_per_level,
-            max_abs_leafnode_pred=p.max_abs_leafnode_pred)
+            max_abs_leafnode_pred=p.max_abs_leafnode_pred,
+            drf_mode=self.drf_mode, nclass=K)
 
     def _distribution(self, category):
+        if self.drf_mode:
+            return Gaussian()  # DRF leaves = per-leaf response means
         name = (self.params.distribution or "AUTO").lower()
         if name == "auto":
-            name = {"Binomial": "bernoulli", "Regression": "gaussian"}[category]
+            name = {"Binomial": "bernoulli", "Multinomial": "multinomial",
+                    "Regression": "gaussian"}[category]
         return get_distribution(name)
+
+    def _make_grad_fn(self, dist, K: int):
+        """(y, f, w) -> (g, h), the reference's ``_make_grad_fn``: DRF
+        trees fit at f = 0 (g = -w y, h = w: leaf = weighted mean of y, or
+        per class of the class indicator); multinomial GBM takes the softmax
+        over the classes of the (K, Rl) margin."""
+        if K == 1:
+            if self.drf_mode:
+                return lambda y, f, w: (-w * y, w)
+            return lambda y, f, w: (dist.gradient(y, f, w),
+                                    dist.hessian(y, f, w))
+
+        def grad(y, f, w):
+            y1h = (y[None, :] == torch.arange(K, device=y.device)[:, None]
+                   ).to(torch.float32)
+            if self.drf_mode:
+                return -w * y1h, w.expand(y1h.shape)
+            p = _softmax(f, dim=0)
+            return (w * (p - y1h),
+                    torch.clamp(w * p * (1 - p), min=1e-10))
+        return grad
+
+    def _init_f(self, K: int, dist, y, w) -> torch.Tensor:
+        """The intercept: zeros for DRF, log class priors for multinomial,
+        the distribution's intercept-only fit otherwise."""
+        dev = y.device
+        if self.drf_mode:
+            return torch.zeros((K,) if K > 1 else (), dtype=torch.float32,
+                               device=dev)
+        if K > 1:
+            counts = torch.stack([torch.sum(w * (y == k)) for k in range(K)])
+            pri = counts / torch.clamp(torch.sum(counts), min=1e-10)
+            return torch.log(torch.clamp(pri, min=1e-10))
+        return torch.nan_to_num(dist.init_f(y, w))
 
     def _setup_build(self):
         """Design inputs, bin edges, binned view, intercept and tree config
@@ -203,6 +308,9 @@ class GBM(ModelBuilder):
         dev = fr.device
         names = self.feature_names()
         y_dev, category, resp_domain = self.response_info()
+        if category == "Multinomial":
+            check_auc_type(p.auc_type)
+        K = len(resp_domain) if category == "Multinomial" else 1
         dist = self._distribution(category)
         is_cat = np.array([fr.vec(n).is_categorical() for n in names])
         y = torch.nan_to_num(y_dev)
@@ -214,16 +322,17 @@ class GBM(ModelBuilder):
 
         feat_vecs = [fr.vec(n) for n in names]
         edges_np = compute_bin_edges_cols(
-            feat_vecs, is_cat, p.nbins, histogram_type=p.histogram_type,
+            feat_vecs, is_cat, p.nbins, seed=_seed(p),
+            histogram_type=p.histogram_type,
             nbins_cats=int(p.nbins_cats or 1024))
         edges = torch.from_numpy(np.nan_to_num(edges_np, nan=np.inf)).to(dev)
         edge_ok = torch.from_numpy(~np.isnan(edges_np)).to(dev)
         Xb = BinnedView.build(feat_vecs, edges_np, names=names).matrix
 
-        f0 = torch.nan_to_num(dist.init_f(y, w))
+        f0 = self._init_f(K, dist, y, w)
         # effective bin count follows the edge matrix: small-data exact
         # binning and nbins_cats may widen it past p.nbins
-        cfg = self._tree_config(nbins=edges_np.shape[1] + 1)
+        cfg = self._tree_config(K, nbins=edges_np.shape[1] + 1)
         nedges_np = (~np.isnan(edges_np)).sum(axis=1).astype(np.int32)
         hist_groups, blk = plan_hist_groups(
             nedges_np, cfg.nbins + 1, cfg.block_rows,
@@ -233,25 +342,25 @@ class GBM(ModelBuilder):
         cfg = dataclasses.replace(cfg, use_sets=bool(is_cat.any()),
                                   block_rows=blk, hist_groups=hist_groups)
         cfg.check_supported()
+        f = (f0[:, None].expand(K, y.shape[0]) if K > 1
+             else f0.expand(y.shape)).clone()
         return types.SimpleNamespace(
             names=names, category=category, resp_domain=resp_domain,
-            dist=dist, w=w, y=y, ym=ym, edges_np=edges_np, edges=edges,
-            edge_ok=edge_ok, Xb=Xb, f0=f0, cfg=cfg, is_cat=is_cat,
-            nedges_np=nedges_np,
+            dist=dist, K=K, w=w, y=y, ymask=ymask, ym=ym, edges_np=edges_np,
+            edges=edges, edge_ok=edge_ok, Xb=Xb, f0=f0, cfg=cfg,
+            is_cat=is_cat, nedges_np=nedges_np,
             iscat=torch.from_numpy(is_cat.astype(np.bool_)).to(dev),
-            nedges=torch.from_numpy(nedges_np.astype(np.int64)).to(dev),
-            f=f0.expand(y.shape).clone())
+            nedges=torch.from_numpy(nedges_np.astype(np.int64)).to(dev), f=f)
 
     def build_impl(self) -> GBMModel:
         s = self._setup_build()
         p, fr, dist, cfg = self.params, self.params.training_frame, s.dist, s.cfg
-        anneal = float(p.learn_rate_annealing or 1.0)
+        anneal = 1.0 if self.drf_mode else float(p.learn_rate_annealing or 1.0)
         rates = torch.from_numpy(
             (anneal ** np.arange(p.ntrees)).astype(np.float32)).to(fr.device)
+        keys = threefry.split(threefry.prng_key(_seed(p)), p.ntrees)
         interval = min(p.score_tree_interval or p.ntrees, p.ntrees)
-
-        def grad_fn(y, f, w):
-            return dist.gradient(y, f, w), dist.hessian(y, f, w)
+        grad_fn = self._make_grad_fn(dist, s.K)
 
         output = ModelOutput()
         output.names = s.names
@@ -260,24 +369,44 @@ class GBM(ModelBuilder):
         output.model_category = s.category
         f = s.f
         parts, history = [], []
+        oob_sum = oob_cnt = None
         weights = s.w if p.weights_column else None
         for c0 in range(0, p.ntrees, interval):
-            f, trees = train_trees(s.Xb, s.y, s.w, f, s.edges, s.edge_ok,
-                                   rates[c0:c0 + interval], cfg, grad_fn,
-                                   iscat=s.iscat, nedges=s.nedges)
+            f, osum, ocnt, trees = train_trees(
+                s.Xb, s.y, s.w, f, s.edges, s.edge_ok, keys[c0:c0 + interval],
+                rates[c0:c0 + interval], cfg, grad_fn, iscat=s.iscat,
+                nedges=s.nedges)
+            oob_sum = osum if oob_sum is None else oob_sum + osum
+            oob_cnt = ocnt if oob_cnt is None else oob_cnt + ocnt
             parts.append(trees)
-            m = make_metrics(s.category, s.ym,
-                             _metrics_raw(s.category, dist, f), weights)
+            ntrees_done = min(c0 + interval, p.ntrees)
+            # DRF scores out of bag throughout, like the reference
+            m = None
+            if self.drf_mode and p.sample_rate < 1.0:
+                m = _oob_metrics(s.category, oob_sum, oob_cnt, s.y, s.ymask,
+                                 weights, p.auc_type)
+                if m is not None:
+                    m.description = "Reported on OOB data"
+            if m is None:
+                m = make_metrics(s.category, s.ym,
+                                 _metrics_raw(s.category, dist, f,
+                                              self.drf_mode, ntrees_done),
+                                 weights, auc_type=p.auc_type)
             history.append({"timestamp": time.time(),
-                            "number_of_trees": min(c0 + interval, p.ntrees),
+                            "number_of_trees": ntrees_done,
                             "training_metrics": m})
         output.scoring_history = history
         output.training_metrics = history[-1]["training_metrics"]
         forest = {k: torch.cat([t[i] for t in parts])
                   for i, k in enumerate(_FOREST_KEYS)}
-        model = GBMModel(p, output, forest, s.f0, dist, cfg, s.is_cat,
-                         edges=s.edges_np, cat_nedges=s.nedges_np)
+        model = self.model_class(p, output, forest, s.f0, dist, cfg, s.is_cat,
+                                 edges=s.edges_np, cat_nedges=s.nedges_np)
         if p.validation_frame is not None:
             output.validation_metrics = model.model_performance(
                 p.validation_frame)
         return model
+
+
+def _seed(p) -> int:
+    """The reference's seed rule: -1 (or None) means 1234."""
+    return 1234 if p.seed in (-1, None) else int(p.seed)

@@ -512,6 +512,9 @@ class GLM(ModelBuilder):
     def _family(self, category) -> Family:
         p = self.params
         name = (p.family or "AUTO").lower()
+        if category == "Multinomial":
+            raise NotImplementedError(f"glm: the multinomial family is not "
+                                      f"ported yet ({_TODO})")
         if name == "auto":
             name = {"Binomial": "binomial", "Regression": "gaussian"}[category]
         cls = _FAMILIES.get(name)

@@ -1,4 +1,5 @@
-"""Model metrics (``h2o_tpu/models/metrics.py``): binomial and regression.
+"""Model metrics (``h2o_tpu/models/metrics.py``): binomial, multinomial
+and regression.
 
 Binomial AUC follows the reference's ``hex/AUC2.java`` design: a 1024-bin
 threshold histogram of weighted positives and negatives, cumulated from the
@@ -6,8 +7,11 @@ top bin down, trapezoid-integrated, and the threshold criteria (F1, ...)
 read off the same bins. The device computes the histogram and the sums;
 the ROC arithmetic runs on the host in numpy, as in the reference. The
 histogram is a sorted float64 running sum (no float atomics), so metrics
-are deterministic on the card. The max-criteria and gains/lift tables wait for
-the port of ``utils/twodimtable.py``.
+are deterministic on the card. Multinomial metrics (logloss, confusion
+matrix, hit ratios) are sums over rows, also free of atomics. The
+max-criteria and gains/lift tables wait for the port of
+``utils/twodimtable.py``, and the multinomial AUC family
+(``MultinomialAUC``) for a later slice.
 """
 
 from __future__ import annotations
@@ -49,6 +53,17 @@ class ModelMetricsBinomial(ModelMetrics):
     max_f1_threshold: float = np.nan
     confusion_matrix: Any = None  # 2x2 [[tn, fp], [fn, tp]] at max-F1
     thresholds_and_metric_scores: Any = None
+
+
+@dataclass
+class ModelMetricsMultinomial(ModelMetrics):
+    logloss: float = np.nan
+    mean_per_class_error: float = np.nan
+    confusion_matrix: Any = None   # (K, K) weighted counts, actual x predicted
+    hit_ratio_table: Any = None    # (K,) share of rows whose class is in the top j
+    auc: float = np.nan            # the AUC family is not ported: always NaN
+    pr_auc: float = np.nan
+    auc_type: str = "none"
 
 
 def _weights(y, weights):
@@ -137,10 +152,55 @@ def make_regression_metrics(y, pred, weights=None) -> ModelMetricsRegression:
         mean_residual_deviance=mse)
 
 
-def make_metrics(category, y, raw, weights=None):
+def check_auc_type(auc_type) -> None:
+    """Multinomial AUC is opt-in in the reference (``auc_type`` other than
+    AUTO/NONE builds ``MultinomialAUC``); the port refuses it."""
+    if (auc_type or "AUTO").lower() not in ("auto", "none"):
+        raise NotImplementedError(
+            f"multinomial AUC (auc_type='{auc_type}') is not ported yet "
+            f"(ROADMAP Queue 1 item 6)")
+
+
+def _multinomial_sums(y, probs, w):
+    """The reference's ``_multinomial_kernel``: logloss, the weighted
+    confusion matrix, the hit-ratio counts and the squared-error sum. The
+    hit order comes from a stable argsort of -p, so tied classes rank by
+    index as in ``jnp.argsort``."""
+    k = probs.shape[1]
+    yi = y.to(torch.int64)
+    y1h = (yi[:, None] == torch.arange(k, device=y.device)).to(torch.float32)
+    py = torch.clamp(torch.gather(probs, 1, yi[:, None])[:, 0], 1e-15, 1.0)
+    logloss = torch.sum(-w * torch.log(py))
+    pred = torch.argmax(probs, dim=1)
+    p1h = (pred[:, None] == torch.arange(k, device=y.device)).to(torch.float32)
+    cm = ((y1h * w[:, None])[:, :, None] * p1h[:, None, :]).sum(dim=0)
+    order = torch.argsort(-probs, dim=1, stable=True)
+    hit_at = torch.cumsum((order == yi[:, None]).to(torch.float32), dim=1)
+    hits = torch.sum(w[:, None] * hit_at, dim=0)
+    mse = torch.sum(w * torch.sum((probs - y1h) ** 2, dim=1))
+    sums = torch.stack([logloss, torch.sum(w), mse])
+    return cm.cpu().numpy(), hits.cpu().numpy(), sums.cpu().numpy()
+
+
+def make_multinomial_metrics(y, probs, weights=None,
+                             auc_type: str = "AUTO") -> ModelMetricsMultinomial:
+    """y class codes (NaN = NA/padding), probs (R, K) class probabilities."""
+    check_auc_type(auc_type)
+    w = _weights(y, weights)
+    cm, hits, sums = _multinomial_sums(torch.nan_to_num(y), probs, w)
+    logloss, n, mse = (float(v) for v in sums)
+    per_class_err = 1.0 - np.diag(cm) / np.maximum(cm.sum(axis=1), 1e-10)
+    return ModelMetricsMultinomial(
+        mse=mse / max(n, 1e-10), rmse=float(np.sqrt(mse / max(n, 1e-10))),
+        nobs=int(n), logloss=logloss / max(n, 1e-10),
+        mean_per_class_error=float(per_class_err.mean()),
+        confusion_matrix=cm, hit_ratio_table=hits / max(n, 1e-10))
+
+
+def make_metrics(category, y, raw, weights=None, auc_type="AUTO"):
     if category == "Binomial":
         return make_binomial_metrics(y, raw[:, 2], weights)
-    if category == "Regression":
-        return make_regression_metrics(y, raw, weights)
-    raise NotImplementedError(f"{category} metrics are not ported yet "
-                              f"(ROADMAP Queue 1 item 6)")
+    if category == "Multinomial":
+        return make_multinomial_metrics(y, raw[:, 1:], weights,
+                                        auc_type=auc_type)
+    return make_regression_metrics(y, raw, weights)

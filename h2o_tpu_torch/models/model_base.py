@@ -38,6 +38,7 @@ class Parameters:
     ignore_const_cols: bool = True
     check_constant_response: bool = True
     stopping_rounds: int = 0
+    auc_type: str = "AUTO"  # multinomial AUC aggregate: AUTO (= NONE) only
     checkpoint: Any = None
 
 
@@ -65,7 +66,8 @@ class Model:
 
     def score0(self, X: torch.Tensor) -> torch.Tensor:
         """Raw per-row prediction on a dense (R, F) matrix: (R,) for
-        regression, (R, 3) [label, p0, p1] for binomial."""
+        regression, (R, 1 + K) [label, p0, ..., pK-1] for a K-class
+        classifier."""
         raise NotImplementedError
 
     def adapt_frame(self, fr: Frame) -> torch.Tensor:
@@ -113,8 +115,25 @@ class Model:
         raw = self.score0(self.adapt_frame(fr))
         p = self.params
         w = fr.vec(p.weights_column).data if p.weights_column else None
-        return make_metrics(self.output.model_category,
-                            fr.vec(p.response_column).data, raw, w)
+        y = _response_device(fr, p.response_column,
+                             self.output.response_domain)
+        return make_metrics(self.output.model_category, y, raw, w,
+                            auc_type=p.auc_type)
+
+
+def _response_device(fr: Frame, response: str, train_dom) -> torch.Tensor:
+    """The response column as codes of the training domain: a categorical
+    response whose domain differs is remapped by level name (levels the
+    training never saw become NaN and drop out of the metrics)."""
+    v = fr.vec(response)
+    if train_dom is None or v.domain is None or v.domain == list(train_dom):
+        return v.data
+    remap = {lvl: i for i, lvl in enumerate(train_dom)}
+    codes = torch.tensor([float(remap.get(lvl, np.nan)) for lvl in v.domain],
+                         dtype=torch.float32, device=v.data.device)
+    ok = ~torch.isnan(v.data)
+    idx = torch.where(ok, v.data, 0.0).to(torch.int64)
+    return torch.where(ok, codes[idx], torch.nan)
 
 
 class ModelBuilder:
@@ -182,18 +201,14 @@ class ModelBuilder:
         p = self.params
         v = p.training_frame.vec(p.response_column)
         if v.is_categorical():
-            if len(v.domain) != 2:
-                raise NotImplementedError(
-                    "multinomial responses are not ported yet (ROADMAP "
-                    "Queue 1 item 6)")
-            return v.data, "Binomial", v.domain
+            cat = "Binomial" if len(v.domain) == 2 else "Multinomial"
+            return v.data, cat, v.domain
         dist = (p.distribution or "AUTO").lower()
         if dist in ("bernoulli", "quasibinomial"):
             return v.data, "Binomial", ["0", "1"]
         if dist == "multinomial":
-            raise NotImplementedError(
-                "multinomial responses are not ported yet (ROADMAP Queue 1 "
-                "item 6)")
+            k = int(v.max()) + 1
+            return v.data, "Multinomial", [str(i) for i in range(k)]
         return v.data, "Regression", None
 
     def build_impl(self) -> Model:

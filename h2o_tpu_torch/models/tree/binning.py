@@ -170,14 +170,14 @@ def _exact_bin_row_limit() -> int:
 
 def _validate_ht(histogram_type: str) -> str:
     ht = (histogram_type or "AUTO").lower()
-    if ht in ("random", "exact"):
+    if ht == "exact":
         raise NotImplementedError(
             f"histogram_type '{histogram_type}' is not ported yet "
             f"(ROADMAP Queue 1 item 4)")
-    if ht not in ("auto", "quantilesglobal", "uniformadaptive"):
+    if ht not in ("auto", "quantilesglobal", "uniformadaptive", "random"):
         raise ValueError(
             f"unsupported histogram_type '{histogram_type}' — supported: "
-            f"AUTO, QuantilesGlobal, UniformAdaptive")
+            f"AUTO, QuantilesGlobal, UniformAdaptive, Random")
     return ht
 
 
@@ -188,7 +188,8 @@ def _wants_exact(ht: str, R: int, nbins: int, nbins_top_level: int) -> bool:
 
 
 def _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,
-                      nbins, nbins_top_level, nbins_cats) -> np.ndarray:
+                      nbins, nbins_top_level, nbins_cats,
+                      seed: int) -> np.ndarray:
     """Per-feature cut assembly from host-side column stats (the
     reference's shared tail, for the histogram types ported)."""
     all_cuts: list = []
@@ -211,6 +212,14 @@ def _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,
             cuts = (np.unique(np.linspace(lo, hi, nbins + 1)[1:-1]
                               .astype(np.float32)) if hi > lo
                     else np.zeros(0, np.float32))
+        elif ht == "random":
+            # XRT's cuts: nbins - 1 uniform draws per feature from its own
+            # numpy stream (the reference's seed rule)
+            lo, hi = float(col_min[f]), float(col_max[f])
+            rrng = np.random.default_rng(seed + 7919 * f)
+            cuts = (np.unique(rrng.uniform(lo, hi, nbins - 1)
+                              .astype(np.float32)) if hi > lo
+                    else np.zeros(0, np.float32))
         else:  # AUTO / QuantilesGlobal
             col = qrows[:, f]
             cuts = np.unique(col[~np.isnan(col)].astype(np.float32))
@@ -223,6 +232,7 @@ def _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,
 
 
 def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
+                           seed: int = 1234,
                            histogram_type: str = "QuantilesGlobal",
                            nbins_top_level: int = 1024,
                            nbins_cats: int = 1024,
@@ -231,7 +241,8 @@ def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
     (R, F) matrix is never stacked. Categorical features (``is_cat``) bin on
     their level codes, one bin per observed level up to ``nbins_cats``
     (levels at or above the cap share the top bin); numeric ones on the
-    histogram type's cuts. Returns (F, W) float32 edges, NaN-padded where a
+    histogram type's cuts (``Random``: ``nbins - 1`` uniform cuts from
+    ``seed``). Returns (F, W) float32 edges, NaN-padded where a
     feature has fewer cuts."""
     ht = _validate_ht(histogram_type)
     cols = list(cols)
@@ -261,7 +272,7 @@ def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
         qs = np.linspace(0, 1, nbins + 1)[1:-1]
         qrows = hist_quantile_sketch_cols(cols, qs, budget_bytes=budget_bytes)
     return _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,
-                             nbins, nbins_top_level, nbins_cats)
+                             nbins, nbins_top_level, nbins_cats, seed)
 
 
 def bin_column(x: torch.Tensor, erow: torch.Tensor,

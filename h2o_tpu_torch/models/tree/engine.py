@@ -9,6 +9,15 @@ full-binary-tree arrays (node i -> children 2i+1 / 2i+2). After the last
 level, one per-node accumulation gives Newton leaf values. The loop stays on
 the device: nothing in it reads a value back to the host.
 
+Sampling follows the reference's ``jax.random`` streams bit for bit
+(`utils/threefry.py`): per tree a row sample from ``fold_in(key, 0)`` over
+the padded rows, a column subsample from ``fold_in(colkey, 997)``, and per
+level a column mask from ``fold_in(colkey, level)`` — DRF's mtries draw or
+GBM's Bernoulli rate. Multinomial models grow one tree per class per
+iteration, each with its own column key, in a loop where the reference
+vmaps. DRF trees fit at f = 0 and keep their leaf means unscaled; the rows a
+tree's bag left out collect its outputs for out-of-bag scoring.
+
 This is the shape of the reference's pipelined program under the pallas
 backend (route pass, then the kernel), and it produces the same forests as
 the reference's synchronous oracle: routing is integer work, and split
@@ -25,7 +34,7 @@ import numpy as np
 import torch
 
 from ...backend.kernels import hist as hist_kernels
-from ...backend.kernels import pow2_block_rows
+from ...utils import threefry
 from ...utils.knobs import get_int
 
 
@@ -33,7 +42,7 @@ from ...utils.knobs import get_int
 class TreeConfig:
     """The reference's ``TreeConfig`` fields that describe the model (its
     JAX execution options ``pipeline``/``async_psum``/``fused_score`` have
-    no counterpart here). Options outside this slice are refused by
+    no counterpart here). Options not ported yet are refused by
     `check_supported`."""
 
     ntrees: int = 50
@@ -67,16 +76,8 @@ class TreeConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item for every
-        option this slice does not reproduce — never approximate."""
+        option the port does not reproduce yet — never approximate."""
         refusals = (
-            (self.sample_rate < 1.0 or self.col_sample_rate < 1.0
-             or self.col_sample_rate_per_tree < 1.0
-             or self.col_sample_rate_change_per_level < 1.0,
-             "row/column sampling below 1 (jax threefry streams, "
-             "ROADMAP Queue 1 item 2)"),
-            (self.drf_mode or self.mtries > 0,
-             "DRF (ROADMAP Queue 1 items 2 and 6)"),
-            (self.nclass > 1, "multinomial responses (ROADMAP Queue 1 item 6)"),
             (self.use_monotone or self.use_interaction,
              "monotone / interaction constraints (ROADMAP Queue 1 item 5)"),
             (self.leaf_quantile is not None or self.huber_leaf_alpha is not None,
@@ -201,19 +202,58 @@ def _route_all(Xb, node, route_args, cfg: TreeConfig) -> torch.Tensor:
                       for s in range(0, Xb.shape[0], _ROUTE_ROWS)])
 
 
-def _node_totals(node, vals, n_nodes: int, block: int) -> torch.Tensor:
-    """Per-node channel totals (n_nodes, V) over the reference's row
-    blocks: exact one-hot products summed per block, blocks in ascending
-    order. Deterministic on the card (no float atomics), and written as a
-    product and a sum rather than a matmul so TF32 can never reach it."""
+def _node_totals(node, vals, n_nodes: int) -> torch.Tensor:
+    """Per-node channel totals (n_nodes, V): the reference's one-hot
+    accumulation as one integer ``index_add_`` in 64-bit fixed point, the
+    level-histogram kernel's number format. Each channel is scaled by a
+    power of two chosen from Rl x max|v| so that no sum can overflow, so
+    integer channels (DRF's counts) come out exact and every channel is the
+    same on the card and on the CPU in any order: no float atomics, one
+    pass, no (rows, nodes) one-hot. A channel holding a NaN or an infinity
+    comes out NaN."""
     Rl, V = vals.shape
-    rb = pow2_block_rows(Rl, block)
-    ar = torch.arange(n_nodes, device=node.device)
-    tot = torch.zeros((n_nodes, V), dtype=torch.float32, device=vals.device)
-    for s in range(0, Rl, rb):
-        n_oh = (node[s:s + rb, None] == ar).to(torch.float32)
-        tot += (n_oh[:, :, None] * vals[s:s + rb, None, :]).sum(dim=0)
-    return tot
+    amax = vals.abs().amax(dim=0).double()                        # (V,)
+    _m, e = torch.frexp(amax * Rl)                                # < 2^e
+    scale = torch.where(amax > 0, torch.ldexp(torch.ones_like(amax), 62 - e),
+                        1.0)
+    finite = torch.isfinite(amax)
+    q = torch.round(torch.nan_to_num(vals.double(), posinf=0.0, neginf=0.0)
+                    * torch.where(finite, scale, 0.0)).to(torch.int64)
+    tot = torch.zeros((n_nodes, V), dtype=torch.int64, device=vals.device)
+    tot.index_add_(0, node.long(), q)
+    return torch.where(finite, tot.double() / scale, torch.nan).to(
+        torch.float32)
+
+
+def _level_col_mask(lkey, F: int, n_lv: int, cfg: TreeConfig, tree_cols,
+                    level: int = 0) -> torch.Tensor:
+    """Per-(feature, node) candidate mask of one level: DRF's mtries k-of-F
+    draw (the k smallest of F uniforms per node) or GBM's Bernoulli
+    ``col_sample_rate`` with every node keeping all features when its draw
+    took none, scaled by ``col_sample_rate_change_per_level ** level`` (the
+    rate saturates at 1; k grows up to F) — the reference's
+    ``_level_col_mask``, on the same stream. ANDed with the tree's
+    columns."""
+    dev = tree_cols.device
+    factor = cfg.col_sample_rate_change_per_level ** level
+    rate = min(max(cfg.col_sample_rate * factor, 1e-6), 1.0)
+    if cfg.mtries > 0:
+        k = min(F, max(1, int(round(min(cfg.mtries, F) * factor))))
+        u = threefry.uniform(lkey, (F, n_lv), dev)
+        kth = torch.sort(u, dim=0).values[k - 1]
+        cmask = u <= kth[None, :]
+    elif rate < 1.0:
+        cmask = threefry.uniform(lkey, (F, n_lv), dev) < _f32(rate)
+        cmask = torch.where(cmask.any(dim=0, keepdim=True), cmask, True)
+    else:
+        cmask = torch.ones((F, n_lv), dtype=torch.bool, device=dev)
+    return cmask & tree_cols[:, None]
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as jax rounds a Python float compared with
+    a float32 array."""
+    return float(np.float32(x))
 
 
 def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
@@ -330,13 +370,14 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
     return out + (catd_lv, isset)
 
 
-def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig, iscat=None,
-               nedges=None):
-    """Grow one tree on the device. Returns (feat (N,), thr (N,), nanL (N,),
-    val (N,), gain (N,), catd (N, nbins | 1), node (Rl,)) — the reference's
-    layout. ``catd`` holds each node's set-split direction row when
-    ``cfg.use_sets`` and ``iscat``/``nedges`` are given, else one dummy
-    column."""
+def _grow_tree(Xb, g, h, w, edges, edge_ok, colkey, cfg: TreeConfig,
+               iscat=None, nedges=None):
+    """Grow one tree on the device. ``colkey`` is the tree's column key
+    (its tree key, or its class key under multinomial). Returns (feat (N,),
+    thr (N,), nanL (N,), val (N,), gain (N,), catd (N, nbins | 1), node
+    (Rl,)) — the reference's layout. ``catd`` holds each node's set-split
+    direction row when ``cfg.use_sets`` and ``iscat``/``nedges`` are given,
+    else one dummy column."""
     Rl, F = Xb.shape
     N = cfg.n_nodes
     B = cfg.nbins + 1
@@ -350,10 +391,14 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig, iscat=None,
                        device=dev)
     node = torch.zeros((Rl,), dtype=torch.int32, device=dev)
     vals3 = torch.stack([w, g, h], dim=1)
-    # sampling rates are 1 in this slice: every (feature, node) is a
-    # candidate, as the reference's all-true masks at rate 1
-    cmask = torch.ones((F, 2 ** max(cfg.max_depth - 1, 0)), dtype=torch.bool,
-                       device=dev)
+    # the tree's column subsample; a uniform draw is below 1, so at rate 1
+    # every column is in, as in the reference
+    if cfg.col_sample_rate_per_tree < 1.0:
+        tree_cols = (threefry.uniform(threefry.fold_in(colkey, 997), (F,), dev)
+                     < _f32(cfg.col_sample_rate_per_tree))
+        tree_cols = torch.where(tree_cols.any(), tree_cols, True)
+    else:
+        tree_cols = torch.ones((F,), dtype=torch.bool, device=dev)
 
     route_args = None
     for level in range(cfg.max_depth):
@@ -363,8 +408,10 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig, iscat=None,
             node = _route_all(Xb, node, route_args, cfg)
         hist = _build_level_hist(Xb, node, vals3, offset, n_lv, B,
                                  cfg.block_rows, groups=cfg.hist_groups)
+        cmask = _level_col_mask(threefry.fold_in(colkey, level), F, n_lv, cfg,
+                                tree_cols, level)
         gain, bf, bb, bnal, Wt, _vL, _vR, catd_lv, isset = _find_splits(
-            hist, cmask[:, :n_lv], edge_ok, cfg,
+            hist, cmask, edge_ok, cfg,
             iscat if use_sets else None, nedges if use_sets else None)
         do_split = (gain > cfg.min_split_improvement) & (Wt >= 2 * cfg.min_rows)
         sl = slice(offset, offset + n_lv)
@@ -378,52 +425,97 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, cfg: TreeConfig, iscat=None,
     if route_args is not None:
         node = _route_all(Xb, node, route_args, cfg)
 
-    # leaf/stop-node values from one final per-node accumulation
-    tot = _node_totals(node, vals3, N, cfg.block_rows)
+    # leaf/stop-node values from one final per-node accumulation; DRF's
+    # leaves are response means, unscaled
+    tot = _node_totals(node, vals3, N)
     gleaf = tot[:, 1]
     if cfg.reg_alpha > 0:
         gleaf = torch.sign(gleaf) * torch.clamp(torch.abs(gleaf) - cfg.reg_alpha,
                                                 min=0.0)
     newton = torch.where(tot[:, 0] > 0,
                          -gleaf / (tot[:, 2] + cfg.reg_lambda + 1e-10), 0.0)
-    val = newton * cfg.learn_rate
+    val = newton * (1.0 if cfg.drf_mode else cfg.learn_rate)
     return feat, thr, nanL, val, garr, catd, node
 
 
-def train_trees(Xb, y, w, f, edges, edge_ok, rates, cfg: TreeConfig,
+def train_trees(Xb, y, w, f, edges, edge_ok, keys, rates, cfg: TreeConfig,
                 grad_fn, iscat=None, nedges=None):
-    """Grow ``len(rates)`` trees — the port's ``make_train_fn``: one Python
-    loop over trees, everything on the device, no host sync per level.
+    """Grow one iteration per key — the port's ``make_train_fn``: one
+    Python loop over iterations (and classes), everything on the device, no
+    host sync per level.
 
-    ``grad_fn(y, f, w) -> (g, h)``; ``rates`` (T,) float32 per-tree learn
-    rate factors (learn_rate_annealing^i); ``iscat``/``nedges`` (F,) are
-    read only under ``cfg.use_sets``. Returns the carried margin ``f`` and
-    the stacked trees (feat, thr, nanL, val, gain) each (T, N), and catd
-    (T, N, nbins | 1)."""
+    ``grad_fn(y, f, w) -> (g, h)``, shaped like ``f``: (Rl,), or (K, Rl)
+    for K = ``cfg.nclass`` > 1; ``keys`` (T, 2) uint32 tree keys (the
+    reference's ``split(PRNGKey(seed), ntrees)`` rows); ``rates`` (T,)
+    float32 learn rate factors (learn_rate_annealing^i);
+    ``iscat``/``nedges`` (F,) are read only under ``cfg.use_sets``.
+
+    Per iteration: the row sample ``s`` from ``fold_in(key, 0)`` over the
+    padded rows (the reference's shard 0), g, h and w scaled by it, one tree
+    — or for K > 1 one per class with the keys ``split(fold_in(key, 31),
+    K)`` — the carried margin moved by the leaf values, and each row out of
+    the bag collecting the trees' outputs. Returns (f, oob_sum (like f),
+    oob_cnt (Rl,), trees): feat, thr, nanL, val, gain each (T, N) or (T, K,
+    N), catd (T, [K,] N, nbins | 1)."""
+    K = cfg.nclass
+    Rl = w.shape[-1]
+    dev = w.device
+    sampled = cfg.sample_rate < 1.0
+    osum = torch.zeros_like(f)
+    ocnt = torch.zeros((Rl,), dtype=torch.float32, device=dev)
     trees = []
-    for rate in rates:
+    for key, rate in zip(keys, rates):
+        if sampled:
+            s = (threefry.uniform(threefry.fold_in(key, 0), (Rl,), dev)
+                 < _f32(cfg.sample_rate)).to(torch.float32)
+        else:
+            s = torch.ones((Rl,), dtype=torch.float32, device=dev)
         g, h = grad_fn(y, f, w)
-        ft, th, nl, vl, ga, cd, node = _grow_tree(Xb, g, h, w, edges, edge_ok,
-                                                  cfg, iscat, nedges)
-        # annealed rate first, then the cap (GBM.java:716-719)
-        vl = vl * rate
-        if math.isfinite(cfg.max_abs_leafnode_pred):
-            vl = torch.clamp(vl, -cfg.max_abs_leafnode_pred,
-                             cfg.max_abs_leafnode_pred)
-        f = f + vl[node.long()]
-        trees.append((ft, th, nl, vl, ga, cd))
-    return f, tuple(torch.stack(t) for t in zip(*trees))
+        if K == 1:
+            grown = [_grow_tree(Xb, g * s, h * s, w * s, edges, edge_ok, key,
+                                cfg, iscat, nedges)]
+        else:
+            ckeys = threefry.split(threefry.fold_in(key, 31), K)
+            grown = [_grow_tree(Xb, g[k] * s, h[k] * s, w * s, edges, edge_ok,
+                                ckeys[k], cfg, iscat, nedges)
+                     for k in range(K)]
+        parts, delta = [], []
+        for ft, th, nl, vl, ga, cd, node in grown:
+            # annealed rate first, then the cap (GBM.java:716-719)
+            vl = vl * rate
+            if math.isfinite(cfg.max_abs_leafnode_pred):
+                vl = torch.clamp(vl, -cfg.max_abs_leafnode_pred,
+                                 cfg.max_abs_leafnode_pred)
+            parts.append((ft, th, nl, vl, ga, cd))
+            delta.append(vl[node.long()])
+        delta = delta[0] if K == 1 else torch.stack(delta)
+        f = f + delta
+        if sampled:
+            # OOB accumulation (`DRF.java` OOB scoring)
+            oob = 1.0 - s
+            osum = osum + delta * oob
+            ocnt = ocnt + oob
+        trees.append(parts[0] if K == 1
+                     else tuple(torch.stack(t) for t in zip(*parts)))
+    return f, osum, ocnt, tuple(torch.stack(t) for t in zip(*trees))
 
 
 def predict_forest(X, feat, thr, nanL, val, max_depth: int, catd=None,
                    iscat=None, nedges=None) -> torch.Tensor:
-    """X (R, F) raw values; feat/thr/nanL/val (T, N). Returns the summed
-    tree outputs (R,). Each level reads the row's value at its node's split
-    feature with a gather and tests the raw threshold; at a set-split node
-    (``catd`` (T, N, nb) given and the feature flagged in ``iscat``) the
-    level code maps to its bin, ``min(level, nedges[f])``, and the node's
-    direction row is read there; NA follows the node's NA direction; leaves
-    hold their node."""
+    """X (R, F) raw values; feat/thr/nanL/val (T, N), or (T, K, N) for a
+    multinomial forest. Returns the summed tree outputs (R,), or (R, K).
+    Each level reads the row's value at its node's split feature with a
+    gather and tests the raw threshold; at a set-split node (``catd`` (T,
+    [K,] N, nb) given and the feature flagged in ``iscat``) the level code
+    maps to its bin, ``min(level, nedges[f])``, and the node's direction row
+    is read there; NA follows the node's NA direction; leaves hold their
+    node."""
+    if feat.dim() == 3:
+        return torch.stack([
+            predict_forest(X, feat[:, k], thr[:, k], nanL[:, k], val[:, k],
+                           max_depth, None if catd is None else catd[:, k],
+                           iscat, nedges)
+            for k in range(feat.shape[1])], dim=1)
     R = X.shape[0]
     out = torch.zeros((R,), dtype=torch.float32, device=X.device)
     for t in range(feat.shape[0]):

@@ -9,8 +9,8 @@ so the repo's conftest must not load):
 
 Integer-valued channels must match the plain version exactly (sums of
 small integers are exact in f32 in any order); real channels within 1e-4
-of each cell's absolute mass, the plain version's worst f32 rounding over
-its ascending row blocks being well below that. Gram entries within 1e-5 of
+of each cell's absolute mass, the plain version's f32 rounding (its float
+adds, in whatever order the card runs them) being well below that. Gram entries within 1e-5 of
 each entry's absolute mass (the plain Gram of |X|, |W|, |z|): the kernel
 and the plain version add the same products in other orders; on operands
 TF32 cannot hold, within 1e-5 of the float64 Gram, which TF32 operands miss
@@ -255,6 +255,44 @@ def test_plan_of_two_clusters_matches_the_exact_count(dev):
     assert bool(((k1 - plain).abs() <= REAL_TOL * mass).all())
 
 
+_COVTYPE_GROUPS = ((tuple(range(10)), 21, "onehot"),
+                   (tuple(range(10, 54)), 4, "segsum"))
+
+
+def test_grouped_kernel_at_covtype_depth_12_matches_plain_and_exact(dev):
+    """DRF's deepest level (depth 12: n_lv = 2,048) at covertype's plan,
+    int8 codes of 10 continuous and 44 one-hot columns, 5% NA: 168 CTAs in
+    21 clusters of 8, each a pass over the rows. The weight channel equals
+    the exact int64 count and the plain version, the real channels lie
+    within 1e-4 of the plain version's cell mass, and two launches are
+    bit-identical."""
+    rng = np.random.default_rng(12)
+    R, n_lv = 200_003, 2048
+    codes = np.concatenate([rng.integers(0, 20, (R, 10)),
+                            rng.integers(0, 2, (R, 44))], axis=1)
+    codes = np.where(rng.random(codes.shape) < 0.05, 20, codes)
+    codes = torch.from_numpy(codes.astype(np.int8)).to(dev)
+    lc = torch.from_numpy(rng.integers(0, n_lv, R).astype(np.int32)).to(dev)
+    vv = rng.normal(size=(R, 3)).astype(np.float32)
+    vv[:, 0] = rng.integers(0, 2, R)
+    vv = torch.from_numpy(vv).to(dev)
+    shape = hist.launch_shape(codes, lc, vv, n_lv, 21, _COVTYPE_GROUPS)
+    assert shape["clusters"] > 1
+    k1 = hist._cuda_grouped(codes, lc, vv, _COVTYPE_GROUPS, n_lv, 20)
+    k2 = hist._cuda_grouped(codes, lc, vv, _COVTYPE_GROUPS, n_lv, 20)
+    xgs = [codes[:, list(idxs)] for idxs, _Bg, _m in _COVTYPE_GROUPS]
+    plain = hist._torch_grouped(xgs, lc, vv, _COVTYPE_GROUPS, n_lv, 20)
+    mass = hist._torch_grouped(xgs, lc, vv.abs(), _COVTYPE_GROUPS, n_lv, 20)
+    exact = _exact_count(codes, lc, vv[:, 0], _COVTYPE_GROUPS, n_lv, 20)
+    torch.cuda.synchronize()
+    w = torch.cat([a[..., 0].reshape(-1) for a in k1])
+    assert torch.equal(w, exact.float())
+    for a, b, p, m in zip(k1, k2, plain, mass):
+        assert torch.equal(a, b)
+        assert torch.equal(a[..., 0], p[..., 0])
+        assert bool(((a - p).abs() <= REAL_TOL * m).all())
+
+
 @pytest.mark.parametrize("F,B,n_lv,staged", [(2_000, 4, 2, False),
                                               (2, 8_000, 1, True),
                                               (1, 9_621, 1, False)])
@@ -451,3 +489,28 @@ def test_small_glm_on_the_card_matches_the_cpu(dev):
     rb = b.output.training_metrics.residual_deviance
     assert abs(ra - rb) <= 1e-5 * abs(rb)
     assert float(np.abs(pa - pb).max()) <= 1e-4
+
+
+def test_small_drf_on_the_card_matches_the_cpu(dev):
+    """``drf_card_vs_cpu`` at 20k rows, 2 iterations of the covertype DRF
+    (7 classes, depth 12): DRF's channels are integers, so split features,
+    NA directions, leaf values and the out-of-bag confusion matrix are
+    identical, predictions within 1e-5; every level on the card goes
+    through the kernel."""
+    import chip_smoke as cs
+
+    fits = {}
+    for d in (dev, "cpu"):
+        fr = cs._covtype_frame(20_000, d)
+        before = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+        m = cs._drf(fr, 2)
+        fits[d] = (m, hist.LAUNCHES + hist.GROUPED_LAUNCHES - before,
+                   cs._class_probs(m, fr).cpu().numpy())
+    (a, la, pa), (b, lb, pb) = fits[dev], fits["cpu"]
+    assert la == 2 * 7 * 12 and lb == 0
+    for k in ("feat", "nanL", "val"):
+        assert torch.equal(a.forest[k].cpu(), b.forest[k])
+    ma, mb = a.output.training_metrics, b.output.training_metrics
+    assert ma.description == "Reported on OOB data"
+    assert np.array_equal(ma.confusion_matrix, mb.confusion_matrix)
+    assert float(np.abs(pa - pb).max()) <= 1e-5

@@ -212,7 +212,8 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.tree.binning, "
             "h2o_tpu_torch.models.model_base, h2o_tpu_torch.frame.chunks, "
             "h2o_tpu_torch.models.glm, h2o_tpu_torch.models.datainfo, "
-            "h2o_tpu_torch.backend.kernels.gram; "
+            "h2o_tpu_torch.backend.kernels.gram, h2o_tpu_torch.models.drf, "
+            "h2o_tpu_torch.utils.threefry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -222,20 +223,25 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(sample_rate=0.5), dict(col_sample_rate=0.7),
-    dict(col_sample_rate_per_tree=0.8), dict(nfolds=3),
-    dict(monotone_constraints={"x0": 1}), dict(histogram_type="Random"),
-    dict(distribution="poisson"), dict(col_sample_rate_change_per_level=0.9),
-    "multinomial",
+    dict(nfolds=3), dict(monotone_constraints={"x0": 1}),
+    dict(distribution="poisson"), dict(histogram_type="Exact"),
+    "multinomial_auc", "goss",
 ])
 def test_out_of_slice_options_raise(change):
+    """What the port still refuses: each raises naming its ROADMAP item.
+    GOSS has no port knob (the reference reads H2O_TPU_GOSS), so its case
+    is a TreeConfig that asks for it."""
+    if change == "goss":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tengine.TreeConfig(goss=(0.2, 0.1)).check_supported()
+        return
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
     kw = dict(KW, ntrees=1)
-    if change == "multinomial":
+    if change == "multinomial_auc":
         fr.add("y3", Vec.from_numpy(np.arange(2000) % 3,
                                     domain=["a", "b", "c"], device="cpu"))
-        kw["response_column"] = "y3"
+        kw.update(response_column="y3", auc_type="MACRO_OVR")
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

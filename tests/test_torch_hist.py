@@ -17,10 +17,8 @@ import torch
 
 import jax.numpy as jnp
 
-from h2o_tpu.backend import kernels as jkernels
 from h2o_tpu.backend.kernels import hist as jhist
 from h2o_tpu.models.tree import engine as jengine
-from h2o_tpu_torch.backend import kernels as tkernels
 from h2o_tpu_torch.backend.kernels import hist as thist
 from h2o_tpu_torch.models.tree import engine as tengine
 
@@ -245,6 +243,69 @@ def test_cluster_plan_takes_more_than_one_cluster_when_tiles_exceed_eight():
     assert n_ctas % cluster == 0
 
 
+def _covtype_groups():
+    """``plan_hist_groups`` at covertype's widths: 10 continuous columns at
+    19 cuts (20 bins + NA), 44 one-hot columns at one cut."""
+    groups, _blk = tengine.plan_hist_groups(np.array([19] * 10 + [1] * 44),
+                                            21, 8192)
+    assert groups == ((tuple(range(10)), 21, "onehot"),
+                      (tuple(range(10, 54)), 4, "segsum"))
+    return groups
+
+
+@pytest.mark.parametrize("n_lv", [512, 2048])
+def test_grouped_at_covtype_buckets_and_deep_levels_matches_the_scan(n_lv):
+    """DRF's deep levels (depth 12: n_lv up to 2,048) at covertype's width
+    buckets: the port's plain version against the reference's XLA scan,
+    the integer weight channel bit-equal."""
+    rng = np.random.default_rng(n_lv)
+    R = 4096
+    codes = np.concatenate([rng.integers(0, 20, (R, 10)),
+                            rng.integers(0, 2, (R, 44))], axis=1)
+    codes = np.where(rng.random(codes.shape) < 0.05, 20, codes)   # NA
+    lc = rng.integers(0, n_lv, R).astype(np.int32)
+    vv = rng.normal(size=(R, 3)).astype(np.float32)
+    vv[:, 0] = rng.integers(0, 2, R)          # a bag: weights 0 or 1
+    groups = _covtype_groups()
+    kw = dict(n_lv=n_lv, nbins_tot=21, block=1024, groups=groups)
+    ref = _numpy(jhist.level_hist_blocks(
+        jnp.asarray(codes.astype(np.int8)), jnp.asarray(lc), jnp.asarray(vv),
+        backend="xla", **kw))
+    port = _numpy(thist.level_hist_blocks(
+        torch.from_numpy(codes.astype(np.int8)), torch.from_numpy(lc),
+        torch.from_numpy(vv), **kw))
+    for (idxs, Bg, _mode), h, p in zip(groups, ref, port):
+        assert p.shape == h.shape == (len(idxs), n_lv, Bg, 3)
+        assert np.array_equal(p[..., 0], h[..., 0])
+        np.testing.assert_allclose(p, h, rtol=RTOL, atol=ATOL)
+    assert sum(float(p[..., 0].sum()) for p in port) == 54 * vv[:, 0].sum()
+
+
+def test_tile_plan_at_covtype_depth_12_takes_many_clusters_once_each_cell():
+    """The deepest DRF level at covertype's plan: ~19 MB of int64 cells
+    cannot fit one cluster of eight 227 KB CTAs, so the plan spreads
+    (feature, node range) items over many clusters; every cell is still
+    owned exactly once, within the int32 offsets and the item table."""
+    n_lv, V = 2048, 3
+    feats, _shapes, n_cells = thist._grouped_feats(54, _covtype_groups(),
+                                                   n_lv, V)
+    assert n_cells == 386 * n_lv * V < 2 ** 31
+    rb, ring = thist._ring_plan(54, 1, V, 21 * V)
+    assert rb > 0
+    items, starts, tile_cells, cluster = thist._tile_plan(feats, n_lv, V,
+                                                          ring)
+    n_ctas = len(starts) - 1
+    assert n_ctas % cluster == 0 and n_ctas // cluster > 1
+    assert n_ctas <= 65535
+    assert thist._ITEM_BYTES + ring + tile_cells * 8 <= thist._SMEM_BYTES
+    owned = np.zeros(n_cells, np.int64)
+    for t in range(n_ctas):
+        assert starts[t + 1] - starts[t] <= thist._MAX_ITEMS
+        for col, n0, n1, bg, _smem, out in items[starts[t]:starts[t + 1]]:
+            owned[out:out + (n1 - n0) * bg * V] += 1
+    assert (owned == 1).all()
+
+
 @pytest.mark.parametrize("F,code_bytes,B,ring", [
     (9, 2, 301, "full"),       # airlines: 1024 rows a block
     (9, 2, 8_000, "shrunk"),   # one node of 192 KB leaves room for fewer rows
@@ -289,13 +350,6 @@ def test_inputs_off_16_bytes_are_planned_without_a_ring():
     assert thist._staging(Xb[1:], lc[1:], vv[1:], feats) == (0, 0)
     assert thist.launch_shape(Xb[1:], lc[1:], vv[1:], 1, 32)[
         "rows_per_block"] == 0
-
-
-@pytest.mark.parametrize("rl,want", [(8192, 8192), (11_001_856, 8192),
-                                     (20224, 8192), (3000, 1024), (7, 4)])
-def test_pow2_block_rows_is_the_reference(rl, want):
-    assert tkernels.pow2_block_rows(rl, want) == \
-        jkernels.pow2_block_rows(rl, want)
 
 
 @pytest.mark.parametrize("nedges,budget", [

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the train wall of the PyTorch/CUDA port goes, on one GPU.
 
-    python3 tools/port_profile.py [airlines|higgs|glm] [--rows N] [--trees T]
-                                  [--solver S]
+    python3 tools/port_profile.py [airlines|higgs|glm|covtype] [--rows N]
+                                  [--trees T] [--solver S]
 
 Builds the shape's frame with ``chip_smoke.py``'s generator (airlines:
-116M rows by default, higgs and glm: 11M), trains the GBM (or, for ``glm``,
-the binomial GLM) of ``chip_smoke.py`` twice — a warm-up, then the timed
-run — and prints one JSON line per run with the seconds spent in each phase
-of ``GBM.train_model``:
+116M rows by default, higgs and glm: 11M, covtype: 581,012), trains the GBM
+(for ``glm`` the binomial GLM, for ``covtype`` the multinomial DRF) of
+``chip_smoke.py`` twice — a warm-up, then the timed run — and prints one
+JSON line per run with the seconds spent in each phase of
+``GBM.train_model`` (``DRF`` shares it):
 
 - ``features``: feature selection and column rollups;
 - ``edges``: bin edges (quantile sketch, categorical cuts);
@@ -16,7 +17,11 @@ of ``GBM.train_model``:
 - ``hist``: level histograms (node window, kernel launch, scatter-back);
 - ``splits``: split search; ``route``: node routing;
 - ``leaf_totals``: the per-node totals that give leaf values;
-- ``metrics``: training metrics; ``other``: the rest of the wall;
+- ``sampling``: the threefry draws (row sample, column subsample, each
+  level's column mask);
+- ``metrics``: training metrics (out of bag for DRF); ``other``: the rest
+  of the wall — for DRF mostly the host's launches of the small per-level
+  and per-tree ops;
 
 or of ``GLM.train_model``:
 
@@ -34,8 +39,9 @@ Each phase is timed on the host clock between two ``torch.cuda.synchronize``
 calls, so a phase's device work is charged to it. The synchronisations add
 a little to the wall (about 60 per tree), which is why the timed run's
 ``train_s`` is printed beside the plain ``train_s`` of a run without them.
-Then one tree (or one GLM fit) under ``torch.profiler`` gives the device
-time by kernel name (top 12) and the device's busy share of its wall.
+Then one tree (one GLM fit; one DRF iteration, a tree per class) under
+``torch.profiler`` gives the device time by kernel name (top 12) and the
+device's busy share of its wall.
 Imports nothing of JAX or of ``h2o_tpu``.
 """
 
@@ -90,11 +96,12 @@ def _glm_timers(T):
     glm._make_dev_kernel = lambda fam: _timed(make_dev(fam), T, "dev_probe")
 
 
-def _timers(T):
+def _timers(T, oob=False):
     """Wrap the phases of the build in synchronised host timers."""
     from h2o_tpu_torch.frame import chunks
     from h2o_tpu_torch.models import gbm, model_base
     from h2o_tpu_torch.models.tree import engine
+    from h2o_tpu_torch.utils import threefry
 
     _wrap(model_base.ModelBuilder, "feature_names", T, "features")
     _wrap(gbm, "compute_bin_edges_cols", T, "edges")
@@ -103,7 +110,9 @@ def _timers(T):
     _wrap(engine, "_find_splits", T, "splits")
     _wrap(engine, "_route_all", T, "route")
     _wrap(engine, "_node_totals", T, "leaf_totals")
-    _wrap(gbm, "make_metrics", T, "metrics")
+    _wrap(threefry, "uniform", T, "sampling")
+    # a row-sampled DRF scores out of bag: make_metrics runs inside
+    _wrap(gbm, "_oob_metrics" if oob else "make_metrics", T, "metrics")
 
 
 def main() -> int:
@@ -112,9 +121,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("shape", nargs="?", default="airlines",
-                    choices=("airlines", "higgs", "glm"))
+                    choices=("airlines", "higgs", "glm", "covtype"))
     ap.add_argument("--rows", type=int, default=None)
-    ap.add_argument("--trees", type=int, default=10)
+    ap.add_argument("--trees", type=int, default=None,
+                    help="10 (GBM), 50 (covtype DRF)")
     ap.add_argument("--solver", default="IRLSM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -129,9 +139,14 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
+    covtype = args.shape == "covtype"
+    args.trees = args.trees or (50 if covtype else 10)
     if args.shape == "airlines":
         rows = args.rows or cs.AIRLINES_ROWS
         fr, response = cs._airlines_frame(rows, dev), "IsDepDelayed"
+    elif covtype:
+        rows = args.rows or cs.COVTYPE_ROWS
+        fr, response = cs._covtype_frame(rows, dev), "Cover_Type"
     else:                                       # higgs, glm
         rows = args.rows or cs.HIGGS_ROWS
         fr, response = cs._higgs_frame(rows, dev), "response"
@@ -141,6 +156,8 @@ def main() -> int:
     def fit(ntrees):
         if glm:
             return cs._glm(fr, solver=args.solver)
+        if covtype:
+            return cs._drf(fr, ntrees)
         return cs._gbm(fr, ntrees, response=response)
 
     def train():
@@ -152,17 +169,23 @@ def main() -> int:
     train()                                     # warm-up: build, allocator
     _, plain_s = train()
     T = collections.defaultdict(float)
-    (_glm_timers if glm else _timers)(T)
+    if glm:
+        _glm_timers(T)
+    else:
+        _timers(T, oob=covtype)
     model, timed_s = train()
     if glm:
         T["eta_w_z"] = T.pop("step") - T["gram"]
     phases = dict(T, other=timed_s - sum(T.values()))
     extra = (dict(solver=args.solver, iterations=model.output.scoring_history[
         -1]["iterations"]) if glm else dict(ntrees=args.trees))
+    m = model.output.training_metrics
+    quality = (dict(oob_logloss=m.logloss,
+                    mean_per_class_error=m.mean_per_class_error)
+               if covtype else dict(auc=m.auc))
     print("phases", json.dumps(dict(
         shape=args.shape, rows=rows, **extra, train_s=plain_s,
-        timed_train_s=timed_s, auc=model.output.training_metrics.auc,
-        phase_s=phases)), flush=True)
+        timed_train_s=timed_s, **quality, phase_s=phases)), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
