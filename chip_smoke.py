@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives four
-paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan), the
-airlines-shaped categorical GBM (grouped plan, set splits), the
+Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives five
+paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan), XGBoost
+on the same frame (gbtree at depth 6; DART and gblinear against the CPU),
+the airlines-shaped categorical GBM (grouped plan, set splits), the
 HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel) and the
 covertype-shaped multinomial DRF and XRT (depth 12, row and column
-sampling on jax's random streams, out-of-bag metrics). In order:
+sampling on jax's random streams, out-of-bag metrics); and every GBM
+option of the port against the CPU. In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
-   int8 features, V = 3) for every level width of a depth-5 tree (n_lv = 1,
-   2, 4, 8, 16): the integer-valued weight channel must match exactly, the
+   int8 features, V = 3) for every level width of a depth-6 tree (n_lv = 1,
+   2, 4, 8, 16, 32; the kernel line sums the depth-5 GBM tree's n_lv 1..16
+   and, under ``higgs_depth6``, all six): the integer-valued weight channel must match exactly, the
    real channels within 1e-4 of each cell's absolute mass, and two launches
    must be bit-identical; times the kernel, the plain version, one
    ``index_add_`` call on precomputed keys (a yardstick the port never
@@ -25,6 +28,12 @@ sampling on jax's random streams, out-of-bag metrics). In order:
    learn rate 0.1, seed 42, 10 trees scored once — and requires 50 flat
    launches (ntrees x max_depth), no grouped launch and a finite training
    AUC above 0.6;
+2b. ``xgboost_train``: XGBoost gbtree on that frame at the port's
+   ``XGBoostParameters`` defaults (eta 0.3, min_child_weight 1, lambda 1)
+   with xgboost's max_depth 6, 50 rounds scored every 5, early stopping
+   after 2 scorings without a 1e-3 relative logloss gain, seed 42: requires
+   trees built x 6 flat launches and no other, a finite training AUC above
+   0.6 and 28 variable importances whose percentages sum to 1 within 1e-5;
 3. ``card_vs_cpu``: the same GBM on 1M rows x 5 trees on the card and on
    the CPU: equal forest structure (split features, NA directions, split
    bins), leaf values and predictions within 1e-5;
@@ -69,6 +78,20 @@ sampling on jax's random streams, out-of-bag metrics). In order:
     relative 1e-5, predictions within 1e-4 (a one-iteration difference in
     where IRLS stops moves beta by up to ``beta_epsilon``); the card's
     lambda search makes iterations + 1 Gram launches (its lambda_max pass);
+10b. ``gbm_options_card_vs_cpu``: 250,000 HIGGS rows with a regression
+    response and a positive one from the generator's latent; 5 trees each
+    of poisson, gamma, tweedie, laplace, quantile (alpha 0.9), huber (alpha
+    0.9), gaussian with two monotone constraints and one interaction
+    group, and ``histogram_type="Exact"`` on the features rounded to one
+    decimal, plus one early-stopped gaussian GBM, on the card and on the
+    CPU: equal split features, NA directions, split bins and tree counts,
+    leaf values and predictions within 1e-5, the same variable-importance
+    order, and the early-stopped model stopping before its 20 trees;
+10c. ``xgboost_card_vs_cpu``: 1M HIGGS rows, 5 rounds of DART (rate_drop
+    0.3, seed 42, max_depth 6) on the card and on the CPU: the same dropped
+    trees, equal forests, leaves and predictions within 1e-5; and the
+    gblinear fit (COD over the Gram kernel): coefficients within 1e-4 x
+    max(1, |beta|), one Gram launch per iteration on the card;
 11. ``level_hist_covtype``: the kernel through the wrapper the covertype
     frame's plan picks (581,012 rows x 54: 10 continuous columns, 4
     wilderness and 40 soil one-hots; ``_covtype_cols``), on the frame's own
@@ -121,6 +144,8 @@ GRAM_TOL = 1e-5                # Gram entry vs plain: <= this x entry |mass|
 GLM_COEF_TOL = 1e-4            # card vs CPU: |dbeta| <= this x max(1, |beta|)
 GLM_DEV_TOL = 1e-5             # card vs CPU: residual deviance, relative
 GLM_PRED_TOL = 1e-4            # card vs CPU: predictions
+OPTIONS_ROWS = 250_000         # gbm_options_card_vs_cpu: HIGGS rows
+XGB_CPU_ROWS = 1_000_000       # xgboost_card_vs_cpu: HIGGS rows
 
 
 def _higgs_cols(nrow: int, seed: int = 42):
@@ -324,7 +349,7 @@ def phase_kernel(dev) -> dict:
     vv = torch.randn((rl, V), generator=g, device=dev)
     vv[:, 0] = torch.randint(0, 4, (rl,), generator=g, device=dev).float()
     per_level = []
-    for n_lv in (1, 2, 4, 8, 16):
+    for n_lv in (1, 2, 4, 8, 16, 32):
         lc = torch.randint(0, n_lv, (rl,), generator=g, device=dev,
                            dtype=torch.int32)
         k1 = hist._cuda_flat(codes, lc, vv, n_lv, B)
@@ -359,10 +384,18 @@ def phase_kernel(dev) -> dict:
                    **hist.launch_shape(codes, lc, vv, n_lv, B))
         print("level_hist", json.dumps(row), flush=True)
         per_level.append(row)
-    return {k: (max(r[k] for r in per_level) if k == "max_abs_err"
-                else sum(r[k] for r in per_level))
-            for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                      "bound_ms")}
+
+    def tree_sums(rows):
+        return {k: (max(r[k] for r in rows) if k == "max_abs_err"
+                    else sum(r[k] for r in rows))
+                for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                          "bound_ms")}
+    # the depth-5 GBM tree (n_lv 1..16), and xgboost's depth-6 tree; the
+    # largest error is over every level checked
+    return dict(tree_sums(per_level[:5]),
+                max_abs_err=max(r["max_abs_err"] for r in per_level),
+                depth6=dict(n_lv=[r["n_lv"] for r in per_level],
+                            **tree_sums(per_level)))
 
 
 def phase_train(dev, fr) -> int:
@@ -396,6 +429,215 @@ def phase_train(dev, fr) -> int:
     _check(bool(np.isfinite(m.auc)) and m.auc > 0.6, f"AUC {m.auc}")
     _check(finite and p1.shape == (HIGGS_ROWS,), "predictions not finite")
     return launches
+
+
+def _xgboost(fr, **kw):
+    """XGBoost at the port's ``XGBoostParameters`` defaults (eta 0.3,
+    min_child_weight 1, lambda 1) with xgboost's own max_depth 6, seed 42,
+    on the HIGGS frame's response."""
+    from h2o_tpu_torch import XGBoost, XGBoostParameters
+
+    return XGBoost(XGBoostParameters(training_frame=fr,
+                                     response_column="response", max_depth=6,
+                                     seed=42, **kw)).train_model()
+
+
+def phase_xgboost_train(dev, fr) -> int:
+    """XGBoost gbtree on the HIGGS frame, 50 rounds scored every 5 with
+    early stopping (2 rounds, tolerance 1e-3); returns its flat launches."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _xgboost(fr, ntrees=50, score_tree_interval=5, stopping_rounds=2,
+                     stopping_tolerance=1e-3)
+    train_s = time.perf_counter() - t0
+    launches, grouped = hist.LAUNCHES, hist.GROUPED_LAUNCHES
+    trees, depth = model.ntrees, model.cfg.max_depth
+    m = model.output.training_metrics
+    vi = model.output.variable_importances
+    pct = float(np.sum(vi["percentage"]))
+    p1 = model.predict(fr).vec("ps").data[:fr.nrow]
+    print("xgboost_train", json.dumps(dict(
+        rows=HIGGS_ROWS, booster="gbtree", max_depth=depth, trees_built=trees,
+        scorings=len(model.output.scoring_history), train_s=train_s,
+        auc=m.auc, logloss=m.logloss, flat_launches=launches,
+        grouped_launches=grouped, gram_launches=gram.GRAM_LAUNCHES,
+        varimp_top5=[[v, float(p)] for v, p in
+                     zip(vi["variable"][:5], vi["percentage"][:5])],
+        varimp_rows=len(vi["variable"]), varimp_pct_sum=pct,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)),
+        flush=True)
+    _check(depth == 6 and launches == trees * 6 and grouped == 0
+           and gram.GRAM_LAUNCHES == 0,
+           f"xgboost_train: {launches} flat, {grouped} grouped and "
+           f"{gram.GRAM_LAUNCHES} Gram launches for {trees} trees of depth "
+           f"{depth}, want {trees} x 6 flat and no other")
+    _check(bool(np.isfinite(m.auc)) and m.auc > 0.6,
+           f"xgboost_train: AUC {m.auc}")
+    _check(len(vi["variable"]) == HIGGS_F and abs(pct - 1.0) <= 1e-5,
+           f"xgboost_train: varimp has {len(vi['variable'])} rows summing "
+           f"to {pct}")
+    _check(bool(torch.isfinite(p1).all()), "xgboost_train: predictions")
+    return launches
+
+
+def _higgs_option_frame(nrow: int, device):
+    """The HIGGS features with two responses from the generator's latent
+    (its first draw): ``reg`` = latent + 0.5 f0 - 0.25 f3 + N(0, 0.5), and
+    ``pos`` = Gamma(2, exp(0.3 reg) / 2) > 0 for the log-link families;
+    plus ``q*``, the features rounded to one decimal, for exact bins."""
+    from h2o_tpu_torch import Frame
+
+    cols, _y = _higgs_cols(nrow)
+    latent = np.random.default_rng(42).normal(size=nrow).astype(np.float32)
+    rng = np.random.default_rng(43)
+    reg = (latent + 0.5 * cols["f0"] - 0.25 * cols["f3"]
+           + rng.normal(scale=0.5, size=nrow)).astype(np.float32)
+    pos = rng.gamma(2.0, np.exp(0.3 * reg) / 2.0).astype(np.float32)
+    cols.update({f"q{j}": np.round(cols[f"f{j}"], 1) for j in range(HIGGS_F)})
+    cols.update(reg=reg, pos=pos)
+    return Frame.from_dict(cols, device=device)
+
+
+#: gbm_options_card_vs_cpu: name -> (response, GBM options), 5 trees each
+GBM_OPTIONS = {
+    "poisson": ("pos", dict(distribution="poisson")),
+    "gamma": ("pos", dict(distribution="gamma")),
+    "tweedie": ("pos", dict(distribution="tweedie", tweedie_power=1.5)),
+    "laplace": ("reg", dict(distribution="laplace")),
+    "quantile": ("reg", dict(distribution="quantile", quantile_alpha=0.9)),
+    "huber": ("reg", dict(distribution="huber", huber_alpha=0.9)),
+    "constrained": ("reg", dict(monotone_constraints={"f0": 1, "f3": -1},
+                                interaction_constraints=[["f0", "f1",
+                                                          "f2"]])),
+    "exact": ("reg", dict(histogram_type="Exact")),
+    # the MSE falls 11-19% a scoring until the sixth (10%, 250k rows), so
+    # it stops at 12 trees
+    "early_stopped": ("reg", dict(ntrees=20, score_tree_interval=2,
+                                  stopping_rounds=2,
+                                  stopping_tolerance=0.11)),
+}
+
+
+def _option_model(fr, name):
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    resp, kw = GBM_OPTIONS[name]
+    feats = [f"q{j}" if name == "exact" else f"f{j}" for j in range(HIGGS_F)]
+    ignored = [n for n in fr.names if n not in feats and n != resp]
+    kw = dict(dict(ntrees=5, max_depth=5, seed=42), **kw)
+    return GBM(GBMParameters(training_frame=fr, response_column=resp,
+                             ignored_columns=ignored, **kw)).train_model()
+
+
+def _same_forest(a, b, what: str, keys=("feat", "nanL")) -> dict:
+    """Card model ``a`` against CPU model ``b``: equal ``keys`` and split
+    bins, leaf values within CPU_TOL; returns the leaf error."""
+    import torch
+
+    for k in keys:
+        _check(torch.equal(a.forest[k].cpu(), b.forest[k]),
+               f"{what}: {k} differs between card and CPU")
+    _check(np.array_equal(_split_bins(a), _split_bins(b)),
+           f"{what}: split bins differ between card and CPU")
+    val_err = float((a.forest["val"].cpu() - b.forest["val"]).abs().max())
+    _check(val_err <= CPU_TOL, f"{what}: leaf values off by {val_err}")
+    return dict(leaf_max_abs_err=val_err,
+                split_nodes=int((a.forest["feat"] >= 0).sum()))
+
+
+def phase_gbm_options_card_vs_cpu(dev) -> None:
+    """Every GBM option this slice ported, 5 trees at 250,000 HIGGS rows on
+    the card and on the CPU: equal forests, leaves and predictions within
+    CPU_TOL, the same variable-importance order; the early-stopped model
+    stops at the same tree count."""
+    rows = OPTIONS_ROWS
+    frames = {d: _higgs_option_frame(rows, d) for d in (dev, "cpu")}
+    for name in GBM_OPTIONS:
+        models, preds, secs = {}, {}, {}
+        for d, fr in frames.items():
+            t0 = time.perf_counter()
+            models[d] = _option_model(fr, name)
+            preds[d] = models[d].predict(fr).vec(0).data[:rows].cpu().numpy()
+            secs[d] = time.perf_counter() - t0
+        a, b = models[dev], models["cpu"]
+        out = _same_forest(a, b, f"gbm option {name}")
+        pred_err = float(np.abs(preds[dev] - preds["cpu"]).max())
+        va, vb = (m.output.variable_importances for m in (a, b))
+        print("gbm_options_card_vs_cpu", json.dumps(dict(
+            option=name, rows=rows, trees_card=a.ntrees, trees_cpu=b.ntrees,
+            plan="grouped" if a.cfg.hist_groups else "flat",
+            pred_max_abs_err=pred_err, varimp_top3=va["variable"][:3],
+            card_s=secs[dev], cpu_s=secs["cpu"], **out)), flush=True)
+        _check(pred_err <= CPU_TOL, f"gbm option {name}: predictions off by "
+                                    f"{pred_err}")
+        _check(va["variable"] == vb["variable"],
+               f"gbm option {name}: variable importances in another order")
+        _check(a.ntrees == b.ntrees, f"gbm option {name}: {a.ntrees} trees "
+                                     f"on the card, {b.ntrees} on the CPU")
+        if name == "early_stopped":
+            _check(a.ntrees < GBM_OPTIONS[name][1]["ntrees"],
+                   f"gbm option {name}: did not stop early")
+
+
+def phase_xgboost_card_vs_cpu(dev) -> int:
+    """DART (5 rounds, rate_drop 0.3) and gblinear at 1M HIGGS rows on the
+    card and on the CPU; returns the card gblinear fit's Gram launches."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    rows = XGB_CPU_ROWS
+    frames = {d: _higgs_frame(rows, d) for d in (dev, "cpu")}
+    models, preds, secs = {}, {}, {}
+    for d, fr in frames.items():
+        t0 = time.perf_counter()
+        models[d] = _xgboost(fr, booster="dart", rate_drop=0.3, ntrees=5)
+        preds[d] = models[d].predict(fr).vec("ps").data[:rows].cpu().numpy()
+        secs[d] = time.perf_counter() - t0
+    a, b = models[dev], models["cpu"]
+    _check(a.dropped_trees == b.dropped_trees and any(a.dropped_trees),
+           f"dart: dropped {a.dropped_trees} on the card, "
+           f"{b.dropped_trees} on the CPU")
+    out = _same_forest(a, b, "dart")
+    pred_err = float(np.abs(preds[dev] - preds["cpu"]).max())
+    print("xgboost_card_vs_cpu", json.dumps(dict(
+        booster="dart", rows=rows, rounds=a.ntrees, dropped=a.dropped_trees,
+        pred_max_abs_err=pred_err, auc_card=a.output.training_metrics.auc,
+        auc_cpu=b.output.training_metrics.auc, card_s=secs[dev],
+        cpu_s=secs["cpu"], **out)), flush=True)
+    _check(pred_err <= CPU_TOL, f"dart: predictions off by {pred_err}")
+    fits = {}
+    for d, fr in frames.items():
+        hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+        if d != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = _xgboost(fr, booster="gblinear")
+        fits[d] = (m, gram.GRAM_LAUNCHES, hist.LAUNCHES
+                   + hist.GROUPED_LAUNCHES, time.perf_counter() - t0)
+    (a, la, ha, ta), (b, _lb, _hb, tb) = fits[dev], fits["cpu"]
+    coef = float(np.max(np.abs(a.beta - b.beta)
+                        / np.maximum(1.0, np.abs(b.beta))))
+    iters = a.output.scoring_history[-1]["iterations"]
+    print("xgboost_card_vs_cpu", json.dumps(dict(
+        booster="gblinear", rows=rows, solver=a.params.solver,
+        lambda_=a.params.lambda_, alpha=a.params.alpha, iterations=iters,
+        gram_launches=la, hist_launches=ha, coef_max_rel_err=coef,
+        auc_card=a.output.training_metrics.auc,
+        auc_cpu=b.output.training_metrics.auc, card_s=ta, cpu_s=tb)),
+        flush=True)
+    _check(coef <= GLM_COEF_TOL, f"gblinear: coefficients off by {coef:.3g} "
+                                 f"(limit {GLM_COEF_TOL})")
+    _check(la == iters and ha == 0, f"gblinear: {la} Gram launches for "
+                                    f"{iters} iterations, {ha} histogram "
+                                    f"launches")
+    return la
 
 
 def _split_bins(model) -> np.ndarray:
@@ -1062,6 +1304,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     flat = run("level_hist", phase_kernel)
     launches = run("train", lambda d: phase_train(d, higgs))
+    xgb_launches = run("xgboost_train",
+                       lambda d: phase_xgboost_train(d, higgs))
     run("card_vs_cpu", phase_card_vs_cpu)
     grouped = run("level_hist_grouped", phase_grouped_kernel)
     grouped_launches = run("airlines_train", phase_airlines_train)
@@ -1073,6 +1317,8 @@ def main() -> int:
         d, higgs, "glm_cod_train", solver="COORDINATE_DESCENT"))
     del higgs
     run("glm_card_vs_cpu", phase_glm_card_vs_cpu)
+    run("gbm_options_card_vs_cpu", phase_gbm_options_card_vs_cpu)
+    gblinear_launches = run("xgboost_card_vs_cpu", phase_xgboost_card_vs_cpu)
     t0 = time.perf_counter()
     cov = _covtype_frame(COVTYPE_ROWS, dev)
     print(f"covtype frame {COVTYPE_ROWS}x54: "
@@ -1095,9 +1341,10 @@ def main() -> int:
         **{k: sum(r[k] for r in levels)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         per_level_ms=[r["ms"] for r in levels], bound_by="bytes")
-    paths = {"level_hist": dict(train=launches),
+    paths = {"level_hist": dict(train=launches, xgboost_train=xgb_launches),
              "level_hist_grouped": dict(airlines_train=grouped_launches),
-             "gram": dict(glm_train=gram_launches)}
+             "gram": dict(glm_train=gram_launches,
+                          xgboost_gblinear=gblinear_launches)}
     cov_entry = ("level_hist" if covtype["wrapper"] == "flat"
                  else "level_hist_grouped")
     paths[cov_entry].update(cov_nums["launches_by_path"])
@@ -1119,6 +1366,8 @@ def main() -> int:
                  library_ms=nums["library_ms"])
         if name == cov_entry:
             e["covtype"] = cov_nums
+        if name == "level_hist":
+            e["higgs_depth6"] = flat["depth6"]
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

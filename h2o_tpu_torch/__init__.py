@@ -4,10 +4,12 @@ The JAX package ``h2o_tpu`` stays the reference; this package mirrors its
 module layout so each port module sits at the same relative path as its
 counterpart, and never imports ``jax`` or anything of ``h2o_tpu``.
 
-Scope so far: GBM (bernoulli, gaussian, multinomial) and DRF/XRT on
-numeric and categorical features, trained and scored end to end —
-``Frame``/``Vec`` on torch tensors, quantile, uniform, random and per-level
-bin edges and int8/int16 bin codes, the tree engine's level loop over the
+Scope so far: GBM (every built-in distribution, quantile and huber leaves,
+monotone and interaction constraints, early stopping, variable importances)
+and DRF/XRT on numeric and categorical features, and XGBoost (gbtree, DART,
+gblinear) over them, trained and scored end to end —
+``Frame``/``Vec`` on torch tensors, quantile, uniform, random, exact and
+per-level bin edges and int8/int16 bin codes, the tree engine's level loop over the
 level-histogram kernel (flat or width-bucketed plans,
 ``backend/kernels/hist.py``, CUDA C++ in ``csrc/level_hist.cu``), row and
 column sampling on ``jax.random``'s threefry streams reproduced bit for bit
@@ -31,7 +33,8 @@ from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
                          XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.glm import GLM, GLMModel, GLMParameters
+from .models.xgboost import XGBoost, XGBoostParameters
 
 __all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters", "DRF",
            "DRFModel", "DRFParameters", "XRT", "XRTParameters", "GLM",
-           "GLMModel", "GLMParameters"]
+           "GLMModel", "GLMParameters", "XGBoost", "XGBoostParameters"]

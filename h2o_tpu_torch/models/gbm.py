@@ -1,7 +1,9 @@
 """GBM — gradient boosting on the shared tree engine
-(``h2o_tpu/models/gbm.py``): bernoulli, gaussian and multinomial, numeric
-and categorical features, row and column sampling; and the engine's DRF mode
-that `drf.py` builds on.
+(``h2o_tpu/models/gbm.py``): every built-in distribution (laplace, quantile
+and huber with their quantile leaves), numeric and categorical features,
+row and column sampling, monotone and interaction constraints, early
+stopping and variable importances; and the engine's DRF mode that `drf.py`
+builds on.
 
 The build: feature selection and response info, bin edges (quantile,
 uniform or random cuts for numeric features, one cut per level for
@@ -11,7 +13,8 @@ whenever a feature is categorical, the intercept ``f0`` (class priors for
 multinomial, zeros for DRF), the tree keys ``split(PRNGKey(seed), ntrees)``
 (seed -1 -> 1234), then the chunk loop over ``score_tree_interval`` — each
 chunk grows its trees on the device (`engine.train_trees`) and scores once:
-the carried margin, or for a row-sampled DRF the out-of-bag outputs.
+the carried margin, or for a row-sampled DRF the out-of-bag outputs — and
+stops early when ``stopping_rounds`` scores show no gain.
 Options the port does not reproduce raise ``NotImplementedError`` naming the
 ROADMAP item.
 """
@@ -232,11 +235,7 @@ class GBM(ModelBuilder):
     def _validate(self):
         super()._validate()
         p = self.params
-        for bad, what in ((p.monotone_constraints,
-                           "monotone_constraints (ROADMAP Queue 1 item 5)"),
-                          (p.interaction_constraints,
-                           "interaction_constraints (ROADMAP Queue 1 item 5)"),
-                          (p.calibrate_model,
+        for bad, what in ((p.calibrate_model,
                            "calibrate_model (ROADMAP Queue 1 item 6)"),
                           (p.custom_distribution_func is not None,
                            "custom distributions (ROADMAP Queue 1 item 6)")):
@@ -246,7 +245,12 @@ class GBM(ModelBuilder):
 
     def _tree_config(self, K: int, nbins: int) -> TreeConfig:
         p = self.params
+        if p.monotone_constraints and K > 1:
+            raise ValueError("monotone_constraints are not supported for "
+                             "multinomial models (reference restriction)")
         return TreeConfig(
+            use_monotone=bool(p.monotone_constraints),
+            use_interaction=bool(p.interaction_constraints),
             ntrees=p.ntrees, max_depth=p.max_depth, nbins=nbins,
             min_rows=p.min_rows, learn_rate=p.learn_rate,
             reg_lambda=p.reg_lambda,
@@ -260,11 +264,18 @@ class GBM(ModelBuilder):
     def _distribution(self, category):
         if self.drf_mode:
             return Gaussian()  # DRF leaves = per-leaf response means
-        name = (self.params.distribution or "AUTO").lower()
+        p = self.params
+        name = (p.distribution or "AUTO").lower()
+        if name == "custom":
+            # a given custom_distribution_func is refused by _validate
+            raise ValueError("distribution='custom' requires "
+                             "custom_distribution_func")
         if name == "auto":
             name = {"Binomial": "bernoulli", "Multinomial": "multinomial",
                     "Regression": "gaussian"}[category]
-        return get_distribution(name)
+        return get_distribution(name, tweedie_power=p.tweedie_power,
+                                quantile_alpha=p.quantile_alpha,
+                                huber_alpha=p.huber_alpha)
 
     def _make_grad_fn(self, dist, K: int):
         """(y, f, w) -> (g, h), the reference's ``_make_grad_fn``: DRF
@@ -326,6 +337,16 @@ class GBM(ModelBuilder):
             histogram_type=p.histogram_type,
             nbins_cats=int(p.nbins_cats or 1024))
         edges = torch.from_numpy(np.nan_to_num(edges_np, nan=np.inf)).to(dev)
+        mono_np = np.zeros(len(names), dtype=np.float32)
+        for col, d in (p.monotone_constraints or {}).items():
+            if col not in names:
+                raise ValueError(f"monotone_constraints column '{col}' is not "
+                                 f"a feature")
+            if fr.vec(col).is_categorical():
+                raise ValueError(f"monotone_constraints on categorical column "
+                                 f"'{col}' (numeric only, as in the reference)")
+            mono_np[names.index(col)] = float(np.sign(d))
+        imat_np = _interaction_matrix(names, p.interaction_constraints)
         edge_ok = torch.from_numpy(~np.isnan(edges_np)).to(dev)
         Xb = BinnedView.build(feat_vecs, edges_np, names=names).matrix
 
@@ -341,6 +362,15 @@ class GBM(ModelBuilder):
         # categorical SET splits whenever a feature is categorical
         cfg = dataclasses.replace(cfg, use_sets=bool(is_cat.any()),
                                   block_rows=blk, hist_groups=hist_groups)
+        if not self.drf_mode and K == 1 and dist.name in ("laplace",
+                                                          "quantile"):
+            # leaves are the median (laplace) or the alpha-quantile of the
+            # leaf's residuals, not a Newton step
+            cfg = dataclasses.replace(
+                cfg, leaf_quantile=(0.5 if dist.name == "laplace"
+                                    else p.quantile_alpha))
+        elif not self.drf_mode and K == 1 and dist.name == "huber":
+            cfg = dataclasses.replace(cfg, huber_leaf_alpha=p.huber_alpha)
         cfg.check_supported()
         f = (f0[:, None].expand(K, y.shape[0]) if K > 1
              else f0.expand(y.shape)).clone()
@@ -350,7 +380,9 @@ class GBM(ModelBuilder):
             edges=edges, edge_ok=edge_ok, Xb=Xb, f0=f0, cfg=cfg,
             is_cat=is_cat, nedges_np=nedges_np,
             iscat=torch.from_numpy(is_cat.astype(np.bool_)).to(dev),
-            nedges=torch.from_numpy(nedges_np.astype(np.int64)).to(dev), f=f)
+            nedges=torch.from_numpy(nedges_np.astype(np.int64)).to(dev), f=f,
+            mono=torch.from_numpy(mono_np).to(dev),
+            imat=torch.from_numpy(imat_np).to(dev))
 
     def build_impl(self) -> GBMModel:
         s = self._setup_build()
@@ -368,14 +400,14 @@ class GBM(ModelBuilder):
         output.response_domain = list(s.resp_domain) if s.resp_domain else None
         output.model_category = s.category
         f = s.f
-        parts, history = [], []
+        parts, history, stop_series = [], [], []
         oob_sum = oob_cnt = None
         weights = s.w if p.weights_column else None
         for c0 in range(0, p.ntrees, interval):
             f, osum, ocnt, trees = train_trees(
                 s.Xb, s.y, s.w, f, s.edges, s.edge_ok, keys[c0:c0 + interval],
                 rates[c0:c0 + interval], cfg, grad_fn, iscat=s.iscat,
-                nedges=s.nedges)
+                nedges=s.nedges, mono=s.mono, imat=s.imat)
             oob_sum = osum if oob_sum is None else oob_sum + osum
             oob_cnt = ocnt if oob_cnt is None else oob_cnt + ocnt
             parts.append(trees)
@@ -395,16 +427,92 @@ class GBM(ModelBuilder):
             history.append({"timestamp": time.time(),
                             "number_of_trees": ntrees_done,
                             "training_metrics": m})
+            if self._should_stop(m, stop_series):
+                break
         output.scoring_history = history
         output.training_metrics = history[-1]["training_metrics"]
         forest = {k: torch.cat([t[i] for t in parts])
                   for i, k in enumerate(_FOREST_KEYS)}
+        output.variable_importances = _varimp(forest, s.names)
         model = self.model_class(p, output, forest, s.f0, dist, cfg, s.is_cat,
                                  edges=s.edges_np, cat_nedges=s.nedges_np)
         if p.validation_frame is not None:
             output.validation_metrics = model.model_performance(
                 p.validation_frame)
         return model
+
+
+    def _should_stop(self, m, series) -> bool:
+        """The reference's stopping rule: append this scoring's metric to
+        ``series`` and stop once the best of the last ``stopping_rounds``
+        is not better than the best before them by ``stopping_tolerance``
+        (relative). AUTO reads the metrics' class name: logloss for a
+        classifier, else DEVIANCE — which reads the MSE."""
+        p = self.params
+        if p.stopping_rounds <= 0:
+            return False
+        name = p.stopping_metric.upper()
+        if name == "AUTO":
+            name = {"Binomial": "LOGLOSS", "Multinomial": "LOGLOSS",
+                    "Regression": "DEVIANCE"}.get(
+                        type(m).__name__.replace("ModelMetrics", ""),
+                        "DEVIANCE")
+        val = {
+            "LOGLOSS": getattr(m, "logloss", np.nan),
+            "AUC": -getattr(m, "auc", np.nan),
+            "MSE": m.mse, "RMSE": m.rmse, "DEVIANCE": m.mse,
+            "MAE": getattr(m, "mae", np.nan),
+        }.get(name, m.mse)
+        series.append(val)
+        k = p.stopping_rounds
+        if len(series) <= k:
+            return False
+        return min(series[-k:]) > min(series[:-k]) * (1 - p.stopping_tolerance)
+
+
+def _varimp(forest, names):
+    """Variable importances: each feature's split gains summed over the
+    forest on the host (float32 gains into float64, the reference's
+    order), then scaled by the largest and by the total. None when no
+    split gained anything."""
+    gains = forest["gain"].cpu().numpy()
+    feats = forest["feat"].cpu().numpy()
+    imp = np.zeros(len(names))
+    np.add.at(imp, feats[feats >= 0].ravel(), gains[feats >= 0].ravel())
+    if imp.sum() <= 0:
+        return None
+    rel = imp / imp.max() if imp.max() > 0 else imp
+    order = np.argsort(-imp)
+    return {"variable": [names[i] for i in order],
+            "relative_importance": imp[order],
+            "scaled_importance": rel[order],
+            "percentage": (imp / imp.sum())[order]}
+
+
+def _interaction_matrix(names, groups) -> np.ndarray:
+    """(F, F) may-interact matrix from ``interaction_constraints`` groups
+    (lists of column names); a feature in no group may only split with
+    itself. All True when no groups are given."""
+    F = len(names)
+    if not groups:
+        return np.ones((F, F), dtype=bool)
+    M = np.eye(F, dtype=bool)
+    idx = {n: i for i, n in enumerate(names)}
+    for grp in groups:
+        if isinstance(grp, str) or not isinstance(grp, (list, tuple)):
+            raise ValueError(
+                "interaction_constraints must be a list of column-name "
+                f"LISTS (e.g. [['a','b'],['c']]), got group {grp!r}")
+        ids = []
+        for col in grp:
+            if col not in idx:
+                raise ValueError(f"interaction_constraints column '{col}' is "
+                                 f"not a feature")
+            ids.append(idx[col])
+        for a in ids:
+            for b in ids:
+                M[a, b] = True
+    return M
 
 
 def _seed(p) -> int:

@@ -3,8 +3,8 @@
 ``Parameters`` keeps the reference's field names and defaults so the two
 packages take the same arguments. ``train_model`` runs the build
 synchronously on the training frame's device; jobs, the K/V store,
-cross-validation and checkpoints wait for a later slice, and options that
-need them raise ``NotImplementedError``.
+cross-validation, checkpoints and checkpoint exports wait for a later
+slice, and options that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,8 +38,11 @@ class Parameters:
     ignore_const_cols: bool = True
     check_constant_response: bool = True
     stopping_rounds: int = 0
+    stopping_metric: str = "AUTO"
+    stopping_tolerance: float = 1e-3
     auc_type: str = "AUTO"  # multinomial AUC aggregate: AUTO (= NONE) only
     checkpoint: Any = None
+    export_checkpoints_dir: Optional[str] = None
 
 
 class ModelOutput:
@@ -161,8 +164,9 @@ class ModelBuilder:
                            "offset columns (ROADMAP Queue 1 item 6)"),
                           (p.checkpoint is not None,
                            "checkpoints (ROADMAP Queue 1 item 12)"),
-                          (p.stopping_rounds > 0,
-                           "early stopping (ROADMAP Queue 1 item 6)")):
+                          (p.export_checkpoints_dir,
+                           "export_checkpoints_dir (ROADMAP Queue 1 item "
+                           "12)")):
             if bad:
                 raise NotImplementedError(f"{self.algo_name}: {what} is not "
                                           f"ported yet")

@@ -170,28 +170,31 @@ def _exact_bin_row_limit() -> int:
 
 def _validate_ht(histogram_type: str) -> str:
     ht = (histogram_type or "AUTO").lower()
-    if ht == "exact":
-        raise NotImplementedError(
-            f"histogram_type '{histogram_type}' is not ported yet "
-            f"(ROADMAP Queue 1 item 4)")
-    if ht not in ("auto", "quantilesglobal", "uniformadaptive", "random"):
+    if ht not in ("auto", "quantilesglobal", "uniformadaptive", "random",
+                  "exact"):
         raise ValueError(
             f"unsupported histogram_type '{histogram_type}' — supported: "
-            f"AUTO, QuantilesGlobal, UniformAdaptive, Random")
+            f"AUTO, QuantilesGlobal, UniformAdaptive, Random, Exact")
     return ht
 
 
 def _wants_exact(ht: str, R: int, nbins: int, nbins_top_level: int) -> bool:
-    """Small-data exact binning engagement rule (the reference's)."""
-    return (R <= _exact_bin_row_limit() and nbins_top_level > nbins
-            and ht in ("auto", "quantilesglobal", "uniformadaptive"))
+    """Exact cuts: always for ``Exact``, and on small data (at most
+    ``H2O_TORCH_EXACT_BIN_ROWS`` rows) for the quantile and uniform types
+    when ``nbins_top_level`` exceeds ``nbins`` (the reference's rule)."""
+    return (ht == "exact"
+            or (R <= _exact_bin_row_limit() and nbins_top_level > nbins
+                and ht in ("auto", "quantilesglobal", "uniformadaptive")))
 
 
 def _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,
                       nbins, nbins_top_level, nbins_cats,
                       seed: int) -> np.ndarray:
     """Per-feature cut assembly from host-side column stats (the
-    reference's shared tail, for the histogram types ported)."""
+    reference's shared tail). An exact column (at most ``nbins_top_level``
+    distinct values) cuts at the midpoints between its distinct values,
+    formed in float64 and rounded to float32 as the reference does; a
+    column with more keeps its quantile cuts."""
     all_cuts: list = []
     for f in range(F):
         if not np.isfinite(col_max[f]):  # all-NaN column
@@ -242,8 +245,9 @@ def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
     their level codes, one bin per observed level up to ``nbins_cats``
     (levels at or above the cap share the top bin); numeric ones on the
     histogram type's cuts (``Random``: ``nbins - 1`` uniform cuts from
-    ``seed``). Returns (F, W) float32 edges, NaN-padded where a
-    feature has fewer cuts."""
+    ``seed``; ``Exact``: the midpoints between distinct values for columns
+    with at most ``nbins_top_level`` of them). Returns (F, W) float32
+    edges, NaN-padded where a feature has fewer cuts."""
     ht = _validate_ht(histogram_type)
     cols = list(cols)
     F = len(cols)
@@ -268,7 +272,7 @@ def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
             exact[0][:, f0:f0 + Fb] = vals.cpu().numpy()
             exact[1][f0:f0 + Fb] = counts.cpu().numpy()
     qrows = None
-    if ht in ("auto", "quantilesglobal"):
+    if ht in ("auto", "quantilesglobal", "exact"):
         qs = np.linspace(0, 1, nbins + 1)[1:-1]
         qrows = hist_quantile_sketch_cols(cols, qs, budget_bytes=budget_bytes)
     return _edges_from_stats(F, is_cat, col_min, col_max, qrows, exact, ht,

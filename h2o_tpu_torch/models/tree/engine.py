@@ -42,8 +42,11 @@ from ...utils.knobs import get_int
 class TreeConfig:
     """The reference's ``TreeConfig`` fields that describe the model (its
     JAX execution options ``pipeline``/``async_psum``/``fused_score`` have
-    no counterpart here). Options not ported yet are refused by
-    `check_supported`."""
+    no counterpart here). ``use_monotone``/``use_interaction`` switch on the
+    constraint arrays `train_trees` is given; ``leaf_quantile`` fits each
+    leaf to that quantile of its residuals (laplace 0.5, quantile alpha),
+    ``huber_leaf_alpha`` fits huber's hybrid leaves. GOSS, not ported yet,
+    is refused by `check_supported`."""
 
     ntrees: int = 50
     max_depth: int = 5
@@ -77,17 +80,9 @@ class TreeConfig:
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item for every
         option the port does not reproduce yet — never approximate."""
-        refusals = (
-            (self.use_monotone or self.use_interaction,
-             "monotone / interaction constraints (ROADMAP Queue 1 item 5)"),
-            (self.leaf_quantile is not None or self.huber_leaf_alpha is not None,
-             "quantile, laplace and huber leaves (ROADMAP Queue 1 item 5)"),
-            (self.goss is not None, "GOSS sampling (ROADMAP Queue 1 item 7)"),
-        )
-        for bad, what in refusals:
-            if bad:
-                raise NotImplementedError(f"h2o_tpu_torch: {what} is not "
-                                          f"ported yet")
+        if self.goss is not None:
+            raise NotImplementedError("h2o_tpu_torch: GOSS sampling (ROADMAP "
+                                      "Queue 1 item 7) is not ported yet")
 
 
 def plan_hist_groups(nedges, B_hist: int, block_rows: int,
@@ -225,6 +220,49 @@ def _node_totals(node, vals, n_nodes: int) -> torch.Tensor:
         torch.float32)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with the product unrounded, as XLA's CPU
+    backend contracts it to an FMA: the float32 product is exact in
+    float64, and rounding the float64 sum to float32 differs from the FMA's
+    single rounding only where the sum falls on a float32 halfway point."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _leaf_quantile_vals(resid, w, node, n_nodes: int, q: float,
+                        qbins: int = 256) -> torch.Tensor:
+    """Per-node ``q``-quantile of the residuals (n_nodes,): the reference's
+    three passes of a (node, qbins) weight histogram over each node's
+    residual bracket, which starts at the global [min, max] of the weighted
+    rows and narrows to the bin holding the target each pass; the value is
+    the last bracket's midpoint, 0 for an empty node. The histogram is
+    `_node_totals` over the key ``node * qbins + bin``: with integer
+    weights its cells count exactly, as the reference's float32 one-hot
+    sums do, so the same bin is picked."""
+    ok = w > 0
+    wz = torch.where(ok, w, 0.0)
+    gmin = torch.where(ok, resid, torch.inf).amin()
+    gmax = torch.where(ok, resid, -torch.inf).amax()
+    lo_n = gmin.expand(n_nodes).clone()
+    hi_n = gmax.expand(n_nodes).clone()
+    nd = node.long()
+    for _ in range(3):
+        span_n = torch.clamp(hi_n - lo_n, min=1e-12)
+        span_row = torch.clamp(span_n[nd], min=1e-12)
+        # clamped before the int conversion: XLA's saturates, torch's not
+        v = (resid - lo_n[nd]) / span_row * qbins
+        bins = torch.clamp(v, 0, qbins - 1).to(torch.int64)
+        hist = _node_totals(nd * qbins + bins, wz[:, None],
+                            n_nodes * qbins)[:, 0].reshape(n_nodes, qbins)
+        cum = torch.cumsum(hist, dim=1)
+        tot = cum[:, -1]
+        target = q * tot
+        idx = torch.argmax((cum >= target[:, None]).to(torch.uint8),
+                           dim=1).to(torch.float32)
+        lo_n, hi_n = (_fma(idx / qbins, span_n, lo_n),
+                      _fma((idx + 1.0) / qbins, span_n, lo_n))
+    return torch.where(tot > 0, 0.5 * (lo_n + hi_n), 0.0)
+
+
 def _level_col_mask(lkey, F: int, n_lv: int, cfg: TreeConfig, tree_cols,
                     level: int = 0) -> torch.Tensor:
     """Per-(feature, node) candidate mask of one level: DRF's mtries k-of-F
@@ -257,11 +295,13 @@ def _f32(x: float) -> float:
 
 
 def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
-                 nedges=None):
+                 nedges=None, mono=None):
     """Best split per node. hist (F, n_lv, B, 3) -> (gain, feat, bin,
     nan_left, node weight, left value, right value, direction rows, set
     flags); the last two are None unless ``cfg.use_sets`` with ``iscat``
-    (F,) bool and ``nedges`` (F,) given.
+    (F,) bool and ``nedges`` (F,) given. ``mono`` (F,) in {-1, 0, 1} drops
+    the candidates whose child values go against their feature's monotone
+    direction.
 
     Candidates are cuts b in 0..nb-2 (left = bins <= b) with the NA bucket
     sent right or left. They are flattened exactly as the reference does —
@@ -337,6 +377,10 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
     vL_nal, vR_nal = child_vals(cg + gna, ch + hna)
     vL = torch.stack([vL_nar, vL_nal], dim=3)
     vR = torch.stack([vR_nar, vR_nal], dim=3)
+    if mono is not None:
+        m = mono[:, None, None, None]
+        viol = ((m > 0) & (vL > vR)) | ((m < 0) & (vL < vR))
+        gains = torch.where(viol, -torch.inf, gains)
     gains = torch.where(colmask[:, :, None, None], gains, -torch.inf)
     gains = torch.where(edge_ok[:, None, :, None], gains, -torch.inf)
 
@@ -371,13 +415,23 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
 
 
 def _grow_tree(Xb, g, h, w, edges, edge_ok, colkey, cfg: TreeConfig,
-               iscat=None, nedges=None):
+               iscat=None, nedges=None, mono=None, imat=None, resid=None,
+               w_full=None):
     """Grow one tree on the device. ``colkey`` is the tree's column key
     (its tree key, or its class key under multinomial). Returns (feat (N,),
     thr (N,), nanL (N,), val (N,), gain (N,), catd (N, nbins | 1), node
     (Rl,)) — the reference's layout. ``catd`` holds each node's set-split
     direction row when ``cfg.use_sets`` and ``iscat``/``nedges`` are given,
-    else one dummy column."""
+    else one dummy column.
+
+    ``mono`` (F,) float32 in {-1, 0, 1}: candidates against a direction are
+    dropped, and each node carries [lo, hi] value bounds that a constrained
+    split passes to its children through the midpoint of its child values;
+    leaf values are clipped into them. ``imat`` (F, F) bool may-interact
+    matrix: each node carries its usable features, a child's being the
+    parent's ANDed with the split feature's row. ``resid`` (y - f) feeds
+    the quantile and huber leaves; huber's delta is taken over every row
+    with the unsampled weights ``w_full``."""
     Rl, F = Xb.shape
     N = cfg.n_nodes
     B = cfg.nbins + 1
@@ -391,6 +445,9 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, colkey, cfg: TreeConfig,
                        device=dev)
     node = torch.zeros((Rl,), dtype=torch.int32, device=dev)
     vals3 = torch.stack([w, g, h], dim=1)
+    lo = torch.full((N,), -torch.inf, dtype=torch.float32, device=dev)
+    hi = torch.full((N,), torch.inf, dtype=torch.float32, device=dev)
+    allowed = torch.ones((N, F), dtype=torch.bool, device=dev)
     # the tree's column subsample; a uniform draw is below 1, so at rate 1
     # every column is in, as in the reference
     if cfg.col_sample_rate_per_tree < 1.0:
@@ -404,17 +461,35 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, colkey, cfg: TreeConfig,
     for level in range(cfg.max_depth):
         n_lv = 2 ** level
         offset = n_lv - 1
+        sl = slice(offset, offset + n_lv)
+        kids = slice(2 * offset + 1, 2 * offset + 1 + 2 * n_lv)
         if route_args is not None:
             node = _route_all(Xb, node, route_args, cfg)
         hist = _build_level_hist(Xb, node, vals3, offset, n_lv, B,
                                  cfg.block_rows, groups=cfg.hist_groups)
         cmask = _level_col_mask(threefry.fold_in(colkey, level), F, n_lv, cfg,
                                 tree_cols, level)
-        gain, bf, bb, bnal, Wt, _vL, _vR, catd_lv, isset = _find_splits(
+        if imat is not None:
+            cmask = cmask & allowed[sl].T
+        gain, bf, bb, bnal, Wt, vL, vR, catd_lv, isset = _find_splits(
             hist, cmask, edge_ok, cfg,
-            iscat if use_sets else None, nedges if use_sets else None)
+            iscat if use_sets else None, nedges if use_sets else None, mono)
         do_split = (gain > cfg.min_split_improvement) & (Wt >= 2 * cfg.min_rows)
-        sl = slice(offset, offset + n_lv)
+        if mono is not None:
+            lo_n, hi_n = lo[sl], hi[sl]
+            cbf = mono[bf]
+            mid = torch.minimum(torch.maximum((vL + vR) * 0.5, lo_n), hi_n)
+            use = do_split & (cbf != 0)
+            up, down = use & (cbf > 0), use & (cbf < 0)
+            lo[kids] = torch.stack([torch.where(down, mid, lo_n),
+                                    torch.where(up, mid, lo_n)], 1).reshape(-1)
+            hi[kids] = torch.stack([torch.where(up, mid, hi_n),
+                                    torch.where(down, mid, hi_n)], 1).reshape(-1)
+        if imat is not None:
+            allowed_n = allowed[sl]
+            child = torch.where(do_split[:, None], allowed_n & imat[bf],
+                                allowed_n)
+            allowed[kids] = torch.repeat_interleave(child, 2, dim=0)
         feat[sl] = torch.where(do_split, bf.to(torch.int32), -1)
         thr[sl] = edges[bf, bb.long()]
         nanL[sl] = bnal
@@ -428,18 +503,40 @@ def _grow_tree(Xb, g, h, w, edges, edge_ok, colkey, cfg: TreeConfig,
     # leaf/stop-node values from one final per-node accumulation; DRF's
     # leaves are response means, unscaled
     tot = _node_totals(node, vals3, N)
-    gleaf = tot[:, 1]
-    if cfg.reg_alpha > 0:
-        gleaf = torch.sign(gleaf) * torch.clamp(torch.abs(gleaf) - cfg.reg_alpha,
-                                                min=0.0)
-    newton = torch.where(tot[:, 0] > 0,
-                         -gleaf / (tot[:, 2] + cfg.reg_lambda + 1e-10), 0.0)
+    if cfg.huber_leaf_alpha is not None and resid is not None:
+        # huber's hybrid leaf: the leaf median plus the leaf mean of the
+        # residuals' distance from it, clipped at delta, the huber_alpha
+        # quantile of |resid| over all rows
+        med = _leaf_quantile_vals(resid, w, node, N, 0.5)
+        delta = _leaf_quantile_vals(torch.abs(resid),
+                                    w if w_full is None else w_full,
+                                    torch.zeros_like(node), 1,
+                                    cfg.huber_leaf_alpha)[0]
+        d = resid - med[node.long()]
+        clipped = torch.sign(d) * torch.minimum(torch.abs(d), delta)
+        tot2 = _node_totals(node, (w * clipped)[:, None], N)
+        gamma = torch.where(tot[:, 0] > 0,
+                            tot2[:, 0] / torch.clamp(tot[:, 0], min=1e-10), 0.0)
+        newton = torch.where(tot[:, 0] > 0, med + gamma, 0.0)
+    elif cfg.leaf_quantile is not None and resid is not None:
+        newton = _leaf_quantile_vals(resid, w, node, N, cfg.leaf_quantile)
+        newton = torch.where(tot[:, 0] > 0, newton, 0.0)
+    else:
+        gleaf = tot[:, 1]
+        if cfg.reg_alpha > 0:
+            gleaf = torch.sign(gleaf) * torch.clamp(
+                torch.abs(gleaf) - cfg.reg_alpha, min=0.0)
+        newton = torch.where(tot[:, 0] > 0,
+                             -gleaf / (tot[:, 2] + cfg.reg_lambda + 1e-10),
+                             0.0)
+    if mono is not None:
+        newton = torch.minimum(torch.maximum(newton, lo), hi)
     val = newton * (1.0 if cfg.drf_mode else cfg.learn_rate)
     return feat, thr, nanL, val, garr, catd, node
 
 
 def train_trees(Xb, y, w, f, edges, edge_ok, keys, rates, cfg: TreeConfig,
-                grad_fn, iscat=None, nedges=None):
+                grad_fn, iscat=None, nedges=None, mono=None, imat=None):
     """Grow one iteration per key — the port's ``make_train_fn``: one
     Python loop over iterations (and classes), everything on the device, no
     host sync per level.
@@ -448,19 +545,25 @@ def train_trees(Xb, y, w, f, edges, edge_ok, keys, rates, cfg: TreeConfig,
     for K = ``cfg.nclass`` > 1; ``keys`` (T, 2) uint32 tree keys (the
     reference's ``split(PRNGKey(seed), ntrees)`` rows); ``rates`` (T,)
     float32 learn rate factors (learn_rate_annealing^i);
-    ``iscat``/``nedges`` (F,) are read only under ``cfg.use_sets``.
+    ``iscat``/``nedges`` (F,) are read only under ``cfg.use_sets``,
+    ``mono`` (F,) only under ``cfg.use_monotone`` and ``imat`` (F, F)
+    only under ``cfg.use_interaction``.
 
     Per iteration: the row sample ``s`` from ``fold_in(key, 0)`` over the
     padded rows (the reference's shard 0), g, h and w scaled by it, one tree
     — or for K > 1 one per class with the keys ``split(fold_in(key, 31),
     K)`` — the carried margin moved by the leaf values, and each row out of
-    the bag collecting the trees' outputs. Returns (f, oob_sum (like f),
-    oob_cnt (Rl,), trees): feat, thr, nanL, val, gain each (T, N) or (T, K,
-    N), catd (T, [K,] N, nbins | 1)."""
+    the bag collecting the trees' outputs. Quantile and huber leaves read
+    the residuals ``y - f`` (K = 1). Returns (f, oob_sum (like f), oob_cnt
+    (Rl,), trees): feat, thr, nanL, val, gain each (T, N) or (T, K, N),
+    catd (T, [K,] N, nbins | 1)."""
     K = cfg.nclass
     Rl = w.shape[-1]
     dev = w.device
     sampled = cfg.sample_rate < 1.0
+    mono = mono if cfg.use_monotone else None
+    imat = imat if cfg.use_interaction else None
+    leafq = cfg.leaf_quantile is not None or cfg.huber_leaf_alpha is not None
     osum = torch.zeros_like(f)
     ocnt = torch.zeros((Rl,), dtype=torch.float32, device=dev)
     trees = []
@@ -473,11 +576,12 @@ def train_trees(Xb, y, w, f, edges, edge_ok, keys, rates, cfg: TreeConfig,
         g, h = grad_fn(y, f, w)
         if K == 1:
             grown = [_grow_tree(Xb, g * s, h * s, w * s, edges, edge_ok, key,
-                                cfg, iscat, nedges)]
+                                cfg, iscat, nedges, mono, imat,
+                                resid=(y - f) if leafq else None, w_full=w)]
         else:
             ckeys = threefry.split(threefry.fold_in(key, 31), K)
             grown = [_grow_tree(Xb, g[k] * s, h[k] * s, w * s, edges, edge_ok,
-                                ckeys[k], cfg, iscat, nedges)
+                                ckeys[k], cfg, iscat, nedges, mono, imat)
                      for k in range(K)]
         parts, delta = [], []
         for ft, th, nl, vl, ga, cd, node in grown:

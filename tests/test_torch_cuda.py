@@ -1,6 +1,7 @@
 """Card tests of the port's CUDA kernels against their plain versions: the
 level histogram through its flat and grouped wrappers, the weighted Gram,
-and a small GLM fit on the card against the same fit on the CPU.
+and small GLM, DRF, GBM-option and XGBoost fits on the card against the
+same fits on the CPU.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -514,3 +515,58 @@ def test_small_drf_on_the_card_matches_the_cpu(dev):
     assert ma.description == "Reported on OOB data"
     assert np.array_equal(ma.confusion_matrix, mb.confusion_matrix)
     assert float(np.abs(pa - pb).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("option", ["poisson", "gamma", "tweedie", "laplace",
+                                    "quantile", "huber", "constrained",
+                                    "exact", "early_stopped"])
+def test_gbm_option_on_the_card_matches_the_cpu(dev, option):
+    """``gbm_options_card_vs_cpu`` at 20k rows: equal split features, NA
+    directions and tree counts, leaf values and predictions within 1e-5,
+    the same variable-importance order; every level on the card goes
+    through a histogram kernel."""
+    import chip_smoke as cs
+
+    fits = {}
+    for d in (dev, "cpu"):
+        fr = cs._higgs_option_frame(20_000, d)
+        before = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+        m = cs._option_model(fr, option)
+        fits[d] = (m, hist.LAUNCHES + hist.GROUPED_LAUNCHES - before,
+                   m.predict(fr).vec(0).to_numpy())
+    (a, la, pa), (b, lb, pb) = fits[dev], fits["cpu"]
+    assert la == a.ntrees * a.cfg.max_depth and lb == 0
+    assert a.ntrees == b.ntrees
+    for k in ("feat", "nanL"):
+        assert torch.equal(a.forest[k].cpu(), b.forest[k])
+    assert float((a.forest["val"].cpu() - b.forest["val"]).abs().max()) <= 1e-5
+    assert float(np.abs(pa - pb).max()) <= 1e-5
+    assert (a.output.variable_importances["variable"]
+            == b.output.variable_importances["variable"])
+
+
+def test_small_xgboost_on_the_card_matches_the_cpu(dev):
+    """``xgboost_card_vs_cpu`` at 20k rows: DART drops the same trees and
+    grows equal forests (leaves within 1e-5); gblinear's coefficients within
+    1e-4 x max(1, |beta|), one Gram launch per iteration on the card."""
+    import chip_smoke as cs
+
+    darts, lins = {}, {}
+    for d in (dev, "cpu"):
+        fr = cs._higgs_frame(20_000, d)
+        # min_rows 10 keeps depth-6 nodes from ties between candidates
+        # that split the same few rows (sums rounded apart by an ulp)
+        darts[d] = cs._xgboost(fr, booster="dart", rate_drop=0.3, ntrees=5,
+                               min_rows=10.0)
+        before = gram.GRAM_LAUNCHES
+        lins[d] = (cs._xgboost(fr, booster="gblinear"),
+                   gram.GRAM_LAUNCHES - before)
+    a, b = darts[dev], darts["cpu"]
+    assert a.dropped_trees == b.dropped_trees
+    for k in ("feat", "nanL"):
+        assert torch.equal(a.forest[k].cpu(), b.forest[k])
+    assert float((a.forest["val"].cpu() - b.forest["val"]).abs().max()) <= 1e-5
+    (la, na), (lb, nb) = lins[dev], lins["cpu"]
+    assert na == la.output.scoring_history[-1]["iterations"] and nb == 0
+    assert np.all(np.abs(la.beta - lb.beta)
+                  <= 1e-4 * np.maximum(1.0, np.abs(lb.beta)))

@@ -21,7 +21,8 @@ reproduces for shard 0. Contracts and tolerances:
   and XLA's and torch's exp differ in the last ulp), training logloss and
   MSE within 1e-5 relative;
 - a reference DRF and a multinomial GBM loaded with ``from_reference``
-  score the reference's rows within 1e-6.
+  score the reference's rows within 1e-6;
+- variable importances in the same order, percentages within 1e-5.
 """
 
 import dataclasses
@@ -50,6 +51,8 @@ from h2o_tpu_torch import (DRF, GBM, XRT, DRFModel, DRFParameters, Frame,
 from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models.tree import engine as tengine
 from h2o_tpu_torch.utils import threefry
+
+from torch_parity import assert_varimp_equal
 
 torch.set_num_threads(2)
 
@@ -210,6 +213,7 @@ def test_forest_matches_the_reference(case):
     np.testing.assert_allclose(tf["thr"][split], jf["thr"][split], rtol=1e-6)
     np.testing.assert_allclose(tm.f0.numpy(), np.asarray(jm.f0), rtol=1e-6)
 
+    assert_varimp_equal(jm, tm)
     jmm, tmm = jm.output.training_metrics, tm.output.training_metrics
     assert type(tmm).__name__ == type(jmm).__name__
     assert tmm.description == jmm.description

@@ -40,7 +40,8 @@ from h2o_tpu.models.gbm import GBMParameters as JGBMParameters
 from h2o_tpu.models.tree import binning as jbinning
 from h2o_tpu.models.tree import engine as jengine
 from h2o_tpu.parallel import mesh as meshmod
-from h2o_tpu_torch import GBM, Frame, GBMModel, GBMParameters
+from h2o_tpu_torch import (GBM, Frame, GBMModel, GBMParameters, XGBoost,
+                           XGBoostParameters)
 from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models import distributions as tdist
 from h2o_tpu_torch.models import metrics as tmetrics
@@ -213,7 +214,8 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.model_base, h2o_tpu_torch.frame.chunks, "
             "h2o_tpu_torch.models.glm, h2o_tpu_torch.models.datainfo, "
             "h2o_tpu_torch.backend.kernels.gram, h2o_tpu_torch.models.drf, "
-            "h2o_tpu_torch.utils.threefry; "
+            "h2o_tpu_torch.utils.threefry, h2o_tpu_torch.models.xgboost, "
+            "h2o_tpu_torch.models.distributions; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -223,9 +225,9 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(nfolds=3), dict(monotone_constraints={"x0": 1}),
-    dict(distribution="poisson"), dict(histogram_type="Exact"),
-    "multinomial_auc", "goss",
+    dict(nfolds=3), dict(calibrate_model=True), dict(checkpoint="prior_gbm"),
+    dict(distribution="custom", custom_distribution_func=tdist.Gaussian()),
+    "multinomial_auc", "goss", "dart_checkpoint",
 ])
 def test_out_of_slice_options_raise(change):
     """What the port still refuses: each raises naming its ROADMAP item.
@@ -238,11 +240,15 @@ def test_out_of_slice_options_raise(change):
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
     kw = dict(KW, ntrees=1)
+    builder, params = GBM, GBMParameters
     if change == "multinomial_auc":
         fr.add("y3", Vec.from_numpy(np.arange(2000) % 3,
                                     domain=["a", "b", "c"], device="cpu"))
         kw.update(response_column="y3", auc_type="MACRO_OVR")
+    elif change == "dart_checkpoint":
+        builder, params = XGBoost, XGBoostParameters
+        kw.update(booster="dart", checkpoint="prior_dart")
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GBM(GBMParameters(training_frame=fr, **kw)).train_model()
+        builder(params(training_frame=fr, **kw)).train_model()

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the train wall of the PyTorch/CUDA port goes, on one GPU.
 
-    python3 tools/port_profile.py [airlines|higgs|glm|covtype] [--rows N]
-                                  [--trees T] [--solver S]
+    python3 tools/port_profile.py [airlines|higgs|glm|covtype|xgboost]
+                                  [--rows N] [--trees T] [--solver S]
 
 Builds the shape's frame with ``chip_smoke.py``'s generator (airlines:
-116M rows by default, higgs and glm: 11M, covtype: 581,012), trains the GBM
-(for ``glm`` the binomial GLM, for ``covtype`` the multinomial DRF) of
-``chip_smoke.py`` twice — a warm-up, then the timed run — and prints one
+116M rows by default, higgs, glm and xgboost: 11M, covtype: 581,012),
+trains the GBM (for ``glm`` the binomial GLM, for ``covtype`` the
+multinomial DRF, for ``xgboost`` the gbtree of ``chip_smoke.py``'s
+``xgboost_train``: depth 6, up to 50 rounds scored every 5, early
+stopping) of ``chip_smoke.py`` twice — a warm-up, then the timed run — and prints one
 JSON line per run with the seconds spent in each phase of
 ``GBM.train_model`` (``DRF`` shares it):
 
@@ -121,10 +123,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("shape", nargs="?", default="airlines",
-                    choices=("airlines", "higgs", "glm", "covtype"))
+                    choices=("airlines", "higgs", "glm", "covtype",
+                             "xgboost"))
     ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--trees", type=int, default=None,
-                    help="10 (GBM), 50 (covtype DRF)")
+                    help="10 (GBM), 50 (covtype DRF, xgboost)")
     ap.add_argument("--solver", default="IRLSM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -140,14 +143,15 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     covtype = args.shape == "covtype"
-    args.trees = args.trees or (50 if covtype else 10)
+    xgb = args.shape == "xgboost"
+    args.trees = args.trees or (50 if covtype or xgb else 10)
     if args.shape == "airlines":
         rows = args.rows or cs.AIRLINES_ROWS
         fr, response = cs._airlines_frame(rows, dev), "IsDepDelayed"
     elif covtype:
         rows = args.rows or cs.COVTYPE_ROWS
         fr, response = cs._covtype_frame(rows, dev), "Cover_Type"
-    else:                                       # higgs, glm
+    else:                                       # higgs, glm, xgboost
         rows = args.rows or cs.HIGGS_ROWS
         fr, response = cs._higgs_frame(rows, dev), "response"
 
@@ -158,6 +162,9 @@ def main() -> int:
             return cs._glm(fr, solver=args.solver)
         if covtype:
             return cs._drf(fr, ntrees)
+        if xgb:
+            return cs._xgboost(fr, ntrees=ntrees, score_tree_interval=5,
+                               stopping_rounds=2, stopping_tolerance=1e-3)
         return cs._gbm(fr, ntrees, response=response)
 
     def train():
@@ -178,7 +185,8 @@ def main() -> int:
         T["eta_w_z"] = T.pop("step") - T["gram"]
     phases = dict(T, other=timed_s - sum(T.values()))
     extra = (dict(solver=args.solver, iterations=model.output.scoring_history[
-        -1]["iterations"]) if glm else dict(ntrees=args.trees))
+        -1]["iterations"]) if glm else dict(ntrees=args.trees,
+                                            trees_built=model.ntrees))
     m = model.output.training_metrics
     quality = (dict(oob_logloss=m.logloss,
                     mean_per_class_error=m.mean_per_class_error)
