@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``h2o_tpu_torch/csrc``, then drives five
-paths: the flagship numeric GBM (HIGGS-shaped, flat histogram plan), XGBoost
+Builds the CUDA kernels from ``h2o_tpu_torch/csrc`` (and the parser's
+host C++ tokenizer), then drives five paths: the flagship numeric GBM
+(HIGGS-shaped, flat histogram plan), XGBoost
 on the same frame (gbtree at depth 6; DART and gblinear against the CPU),
 the airlines-shaped categorical GBM (grouped plan, set splits), the
 HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel) and the
 covertype-shaped multinomial DRF and XRT (depth 12, row and column
-sampling on jax's random streams, out-of-bag metrics); and every GBM
-option of the port against the CPU. In order:
+sampling on jax's random streams, out-of-bag metrics); every GBM option of
+the port against the CPU; and H2O's usual workflow from a CSV file on
+disk to cross-validated metrics. In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -111,7 +113,44 @@ option of the port against the CPU. In order:
 14. ``drf_card_vs_cpu``: that DRF on 100,000 rows x 5 iterations on the card
     and on the CPU: equal split features, NA directions, split bins, leaf
     values and out-of-bag counts (integer channels), predictions within
-    1e-5.
+    1e-5; and ``model_performance`` under each of the four multinomial
+    ``auc_type``s on both devices: within 1e-6, finite, in (0.5, 1];
+15. ``import_csv``: writes the airlines generator (seed 116) as a
+    7,009,728-row CSV (the row count of the ASA Data Expo 2009 on-time
+    file for 2008; levels as strings, ``Distance`` NA on every 97th row,
+    ``CRSDepTime`` empty on every 89th), reads it back through
+    ``import_file`` with the calendar columns typed ``enum`` as H2O's
+    airlines demos do, and requires the types, the 8 domain sizes, NA at
+    exactly the blanked cells, every level (by name) and every float32
+    value as generated; prints the write and parse walls, MB/s and rows/s;
+    then writes the same rows with the header and string levels quoted (R's
+    ``write.csv``), parses that through the same call and requires the
+    frame bit-equal to the unquoted parse, printing its wall and MB/s;
+16. ``import_cv_gbm``: ``split_frame(ratios=[0.7, 0.15], seed=42)`` into
+    train, valid and calib, then ``bench_airlines``'s GBM (10 trees) on
+    train with 5-fold CV (holdout predictions and fold assignment kept),
+    the validation frame and Platt calibration on calib: the folds cover
+    every train row, holdout predictions finite, CV, validation and
+    calibrated AUC finite and above 0.6, cal_p0 + cal_p1 = 1 within 1e-6,
+    and grouped launches = trees built x 5 with no other; prints each
+    fold's and the main build's wall and the metrics scans' seconds; then,
+    after the counted run, holds the kernel through its grouped wrapper
+    against its plain version on the train frame's own bin codes under the
+    main model's edges and plan, at n_lv = 1, 2, 4, 8, 16, with the checks
+    and timings of ``level_hist_grouped``;
+17. ``import_cv_glm``: ``bench.py:bench_glm``'s IRLSM fit on all nine
+    predictors (one-hot, P = 690) with 5-fold CV and the validation frame:
+    Gram launches = the IRLS iterations of the 6 fits, residual below null
+    deviance on each, CV and validation AUC finite and above 0.6; prints
+    the peak device memory; then, after the counted run, holds the Gram
+    kernel against its plain version on the main fit's own one-hot design
+    (about 4.9M x 690) with the checks and timings of ``gram``;
+18. ``import_cv_card_vs_cpu``: a 100,000-row CSV of the same generator
+    through import, split, the CV GBM and the CV GLM on the card and on
+    the CPU: the same frame bit for bit, equal folds and fold/main
+    forests, leaves, holdout predictions, Platt (a, b) and GBM CV metrics
+    within 1e-5, GLM coefficients within 1e-4 x max(1, |beta|) and GLM CV
+    metrics within 1e-4.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
@@ -146,6 +185,18 @@ GLM_DEV_TOL = 1e-5             # card vs CPU: residual deviance, relative
 GLM_PRED_TOL = 1e-4            # card vs CPU: predictions
 OPTIONS_ROWS = 250_000         # gbm_options_card_vs_cpu: HIGGS rows
 XGB_CPU_ROWS = 1_000_000       # xgboost_card_vs_cpu: HIGGS rows
+IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
+IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
+#: what H2O's airlines demos pass to import_file
+IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
+                    "DayOfWeek": "enum"}
+IMPORT_CATS = ("Year", "Month", "DayofMonth", "DayOfWeek", "UniqueCarrier",
+               "Origin", "Dest", "IsDepDelayed")
+IMPORT_CARDS = (22, 12, 31, 7, 22, 300, 300, 2)
+AUC_TYPES = ("MACRO_OVR", "WEIGHTED_OVR", "MACRO_OVO", "WEIGHTED_OVO")
+#: the CSVs are written here, inside the checkout (git-ignored), and removed
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_smoke")
 
 
 def _higgs_cols(nrow: int, seed: int = 42):
@@ -224,6 +275,64 @@ def _airlines_frame(nrow: int, device):
     fr.add("IsDepDelayed", Vec.from_numpy(y, type=T_CAT, domain=["NO", "YES"],
                                           device=device))
     return fr
+
+
+def _csv_blanks(nrow: int) -> dict:
+    """The cells ``_write_airlines_csv`` leaves NA: ``Distance`` on every
+    97th row (written ``NA``), ``CRSDepTime`` on every 89th (left empty)."""
+    r = np.arange(nrow)
+    return {"Distance": r % 97 == 96, "CRSDepTime": r % 89 == 88}
+
+
+def _write_airlines_csv(path: str, nrow: int, seed: int = 116,
+                        quote: bool = False):
+    """The airlines generator as a CSV file, the way H2O's airlines demos
+    import it: categorical levels as strings (carriers ``C00``.., airports
+    ``A000``.., the calendar columns as their numbers, ``IsDepDelayed`` as
+    ``NO``/``YES``), ``CRSDepTime`` as an integer, ``Distance`` with nine
+    significant digits (its float32 values read back bit for bit), and the
+    ``_csv_blanks`` cells NA. Rows are assembled with numpy: each field's
+    bytes scattered to its offset in the line. With ``quote`` the header
+    and the string levels (carriers, airports, ``NO``/``YES``) are quoted,
+    as R's ``write.csv`` writes them. Returns the generator's (cols, y)."""
+    cols, y = _airlines_cols(nrow, seed)
+    blank = _csv_blanks(nrow)
+    q = b'"' if quote else b""
+    fields = []
+    for name, (vals, dom) in cols.items():
+        if dom is not None:
+            lq = q if name in ("UniqueCarrier", "Origin", "Dest") else b""
+            s = np.array([lq + d.encode() + lq for d in dom])[
+                vals.astype(np.int64)]
+        elif name == "CRSDepTime":
+            s = np.array([b"%d" % v for v in range(2400)])[
+                vals.astype(np.int64)]
+        else:
+            s = np.array([b"%.9g" % v for v in vals.tolist()])
+        if name in blank:
+            s = s.astype(f"S{max(s.dtype.itemsize, 2)}")
+            s[blank[name]] = b"NA" if name == "Distance" else b""
+        fields.append(s)
+    fields.append(np.array([q + b"NO" + q, q + b"YES" + q])[
+        y.astype(np.int64)])
+    names = list(cols) + ["IsDepDelayed"]
+    mats = [np.ascontiguousarray(s).view(np.uint8).reshape(nrow, -1)
+            for s in fields]
+    lens = [(m != 0).sum(axis=1) for m in mats]
+    line = np.sum(lens, axis=0) + len(fields)   # separators and newline
+    off = np.concatenate([[0], np.cumsum(line)[:-1]])
+    out = np.empty(int(line.sum()), dtype=np.uint8)
+    for c, (m, ln) in enumerate(zip(mats, lens)):
+        for j in range(m.shape[1]):
+            ok = j < ln
+            out[off[ok] + j] = m[ok, j]
+        off = off + ln
+        out[off] = ord("\n") if c == len(fields) - 1 else ord(",")
+        off = off + 1
+    with open(path, "wb") as f:
+        f.write(b",".join(q + n.encode() + q for n in names) + b"\n")
+        f.write(out.tobytes())
+    return cols, y
 
 
 #: UCI Covertype (``covtype.data``): the 10 continuous columns and their
@@ -896,15 +1005,25 @@ def phase_airlines_card_vs_cpu(dev) -> None:
 
 
 def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
-    """One Gram shape with z: kernel vs plain checks and the four timings.
-    W in [0, 0.25) like a binomial IRLS weight."""
+    """One Gram shape with z on random inputs, W in [0, 0.25) like a
+    binomial IRLS weight: ``_gram_check``'s numbers."""
     import torch
-
-    from h2o_tpu_torch.backend.kernels import gram
 
     X = torch.randn((R, P), generator=g, device=dev)
     W = torch.rand((R,), generator=g, device=dev) * 0.25
     z = torch.randn((R,), generator=g, device=dev)
+    return _gram_check(X, W, z, reps)
+
+
+def _gram_check(X, W, z, reps: int) -> dict:
+    """The Gram kernel on (X, W, z): two launches bit-equal, every entry
+    within GRAM_TOL of its mass (the plain Gram of |X|, W, |z|) from the
+    plain version, and the four timings."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram
+
+    R, P = X.shape
     G1, b1 = gram._cuda_gram(X, W, z)
     G2, b2 = gram._cuda_gram(X, W, z)
     # the plain version's matmuls: cuBLAS sets itself up on its first call
@@ -914,7 +1033,9 @@ def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
     start.record()
     Gp, bp = gram._plain_gram(X, W, z)
     stop.record()
-    Gm, bm = gram._plain_gram(X.abs(), W, z.abs())
+    Xa = X.abs()
+    Gm, bm = gram._plain_gram(Xa, W, z.abs())
+    del Xa
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
     _check(torch.equal(G1, G2) and torch.equal(b1, b2),
@@ -1238,10 +1359,10 @@ def phase_drf_card_vs_cpu(dev) -> None:
     import torch
 
     rows, ntrees = 100_000, 5
-    models, probs = {}, {}
+    models, probs, frames = {}, {}, {}
     for d in (dev, "cpu"):
         t0 = time.perf_counter()
-        fr = _covtype_frame(rows, d)
+        fr = frames[d] = _covtype_frame(rows, d)
         models[d] = _drf(fr, ntrees)
         probs[d] = _class_probs(models[d], fr).cpu().numpy()
         print(f"drf_card_vs_cpu {d}: {time.perf_counter() - t0:.3f} s",
@@ -1257,13 +1378,412 @@ def phase_drf_card_vs_cpu(dev) -> None:
                                                  mb.confusion_matrix),
            "drf 100k rows: out-of-bag counts differ between card and CPU")
     pred_err = float(np.abs(probs[dev] - probs["cpu"]).max())
+    # the multinomial AUC family: model_performance under each auc_type
+    aucs = {}
+    for t in AUC_TYPES:
+        for d, m in models.items():
+            m.params.auc_type = t
+            mm = m.model_performance(frames[d])
+            aucs[(t, d)] = (mm.auc, mm.pr_auc)
+        a.params.auc_type = b.params.auc_type = "AUTO"
+    auc_err = max(abs(aucs[(t, dev)][i] - aucs[(t, "cpu")][i])
+                  for t in AUC_TYPES for i in (0, 1))
     print("drf_card_vs_cpu", json.dumps(dict(
         rows=rows, ntrees=ntrees, split_nodes=int((a.forest["feat"] >= 0)
                                                   .sum()),
         oob_rows=ma.nobs, oob_logloss_card=ma.logloss,
-        oob_logloss_cpu=mb.logloss, pred_max_abs_err=pred_err)), flush=True)
+        oob_logloss_cpu=mb.logloss, pred_max_abs_err=pred_err,
+        auc_card={t: aucs[(t, dev)][0] for t in AUC_TYPES},
+        pr_auc_card={t: aucs[(t, dev)][1] for t in AUC_TYPES},
+        auc_max_abs_err=auc_err)), flush=True)
     _check(pred_err <= CPU_TOL, f"drf 100k rows: predictions off by "
                                 f"{pred_err}")
+    _check(auc_err <= 1e-6, f"drf 100k rows: AUC types off by {auc_err}")
+    for t in AUC_TYPES:
+        auc = aucs[(t, dev)][0]
+        _check(bool(np.isfinite(auc)) and 0.5 < auc <= 1.0,
+               f"drf 100k rows: {t} AUC {auc}")
+
+
+class _Walls:
+    """Wall clock of each call of ``cls.method`` (synchronised with the
+    card), recorded while the context is open: the fold and main model
+    builds under ``train_model``, or the metrics scans."""
+
+    def __init__(self, cls, method: str, dev):
+        self.cls, self.method, self.dev, self.s = cls, method, dev, []
+
+    def __enter__(self):
+        import torch
+
+        orig = getattr(self.cls, self.method)
+        self.orig = orig
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+            self.s.append(time.perf_counter() - t0)
+            return out
+        setattr(self.cls, self.method, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.orig)
+
+
+def _import_airlines(path: str, dev):
+    from h2o_tpu_torch import import_file
+
+    return import_file(path, col_types=IMPORT_COL_TYPES, device=dev)
+
+
+def phase_import_csv(dev):
+    """Write the 7,009,728-row airlines CSV, read it back through
+    ``import_file`` and check every column against the generator; returns
+    the frame and the parse's numbers."""
+    import torch
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "airlines_2008.csv")
+    try:
+        t0 = time.perf_counter()
+        cols, y = _write_airlines_csv(path, IMPORT_ROWS)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = _import_airlines(path, dev)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    n = IMPORT_ROWS
+    _check(fr.nrow == n, f"import_csv: {fr.nrow} rows, want {n}")
+    types = fr.types()
+    want = dict({c: "enum" for c in IMPORT_CATS}, CRSDepTime="int",
+                Distance="real")
+    _check(types == want, f"import_csv: types {types}")
+    cards = tuple(fr.vec(c).cardinality() for c in IMPORT_CATS)
+    _check(cards == IMPORT_CARDS, f"import_csv: domain sizes {cards}")
+    blank = _csv_blanks(n)
+    for name in fr.names:
+        na = torch.isnan(fr.vec(name).data[:n]).cpu().numpy()
+        want_na = blank.get(name, np.zeros(n, dtype=bool))
+        _check(np.array_equal(na, want_na),
+               f"import_csv: {name} NA at {int(na.sum())} rows, the writer "
+               f"blanked {int(want_na.sum())}")
+    gen = dict(cols, IsDepDelayed=(y, ["NO", "YES"]))
+    for name, (vals, dom) in gen.items():
+        got = fr.vec(name).data[:n].cpu().numpy()
+        if dom is not None:
+            # the parsed codes, read by level name, are the generator's
+            at = {lvl: i for i, lvl in enumerate(fr.vec(name).domain)}
+            perm = np.array([at[lvl] for lvl in dom], dtype=np.float32)
+            _check(np.array_equal(got, perm[vals.astype(np.int64)]),
+                   f"import_csv: {name} levels differ from the generator's")
+        else:
+            ok = ~blank[name]
+            _check(np.array_equal(got[ok].view(np.int32),
+                                  vals[ok].astype(np.float32).view(np.int32)),
+                   f"import_csv: {name} is not the generator's float32")
+    # the same rows with the string levels quoted (R's write.csv): the
+    # same frame bit for bit
+    try:
+        _write_airlines_csv(path, IMPORT_ROWS, quote=True)
+        qsize = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fq = _import_airlines(path, dev)
+        torch.cuda.synchronize()
+        qparse_s = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    _check(fq.names == fr.names and fq.types() == types,
+           f"import_csv quoted: names {fq.names}, types {fq.types()}")
+    for name in fr.names:
+        a, b = fr.vec(name), fq.vec(name)
+        _check(a.domain == b.domain and torch.equal(
+            a.data.view(torch.int32), b.data.view(torch.int32)),
+            f"import_csv quoted: {name} differs from the unquoted parse")
+    del fq
+    out = dict(rows=n, bytes=size, write_s=write_s, parse_s=parse_s,
+               parse_mb_per_s=size / 1e6 / parse_s,
+               parse_rows_per_s=n / parse_s, quoted_bytes=qsize,
+               quoted_parse_s=qparse_s,
+               quoted_parse_mb_per_s=qsize / 1e6 / qparse_s,
+               na=dict(Distance=int(blank["Distance"].sum()),
+                       CRSDepTime=int(blank["CRSDepTime"].sum())),
+               domain_sizes=dict(zip(IMPORT_CATS, cards)))
+    print("import_csv", json.dumps(out), flush=True)
+    return fr, out
+
+
+def _cv_gbm(train, valid, calib, **kw):
+    """``bench_airlines``'s GBM with 5-fold CV (holdout predictions and
+    fold assignment kept), a validation frame and Platt calibration."""
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    params = dict(training_frame=train, response_column="IsDepDelayed",
+                  ntrees=10, max_depth=5, nbins=20, nbins_cats=1024,
+                  learn_rate=0.1, seed=42, nfolds=5,
+                  keep_cross_validation_predictions=True,
+                  keep_cross_validation_fold_assignment=True,
+                  validation_frame=valid, calibrate_model=True,
+                  calibration_frame=calib)
+    params.update(kw)
+    return GBM(GBMParameters(**params)).train_model()
+
+
+def _cv_glm(train, valid):
+    """``bench.py:bench_glm``'s IRLSM fit (binomial, seed 42) on all nine
+    predictors, one-hot, with 5-fold CV and a validation frame."""
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=train,
+                             response_column="IsDepDelayed",
+                             family="binomial", seed=42, nfolds=5,
+                             validation_frame=valid)).train_model()
+
+
+def _import_hist_levels(dev, model, train) -> dict:
+    """The grouped wrapper against its plain version on the imported train
+    frame's own bin codes, under the main CV model's edges and plan, at
+    every level width of its depth-5 trees, V = 3 (a 0/1 weight and two
+    real channels). Returns the levels' sums and the per-level rows."""
+    import torch
+
+    from h2o_tpu_torch.frame.chunks import BinnedView
+
+    names = [n for n in train.names if n != "IsDepDelayed"]
+    groups, B = model.cfg.hist_groups, model.cfg.nbins + 1
+    _check(groups is not None and len(names) == model.edges.shape[0],
+           "import_cv_gbm: the main model's plan is not grouped")
+    codes = BinnedView.build([train.vec(n) for n in names], model.edges,
+                             names=names).matrix
+    g = torch.Generator(device=dev).manual_seed(2008)
+    rl = codes.shape[0]
+    rows = []
+    for n_lv in (1, 2, 4, 8, 16):
+        lc = torch.randint(0, n_lv, (rl,), generator=g, device=dev,
+                           dtype=torch.int32)
+        vv = torch.randn((rl, 3), generator=g, device=dev)
+        vv[:, 0] = torch.randint(0, 2, (rl,), generator=g, device=dev).float()
+        row = _grouped_level(dev, codes, lc, vv, groups, n_lv, B, 10)
+        print("level_hist_import", json.dumps(row), flush=True)
+        rows.append(row)
+        del lc, vv
+    del codes
+    torch.cuda.empty_cache()
+    out = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return dict(out, rows=rl, B=B, n_lv=[r["n_lv"] for r in rows],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_rel_mass=max(r["max_rel_mass"] for r in rows),
+                per_level_ms=[r["ms"] for r in rows], bound_by="bytes",
+                hist_groups=[[list(i), w, m] for i, w, m in groups])
+
+
+def phase_import_cv_gbm(dev, train, valid, calib) -> tuple[int, dict]:
+    """The GBM with CV, validation and calibration on the imported split;
+    returns its grouped launches and the kernel's numbers on the train
+    frame's own codes."""
+    import torch
+
+    from h2o_tpu_torch import GBM
+    from h2o_tpu_torch.backend.kernels import gram, hist
+    from h2o_tpu_torch.models import metrics
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Walls(GBM, "build_impl", dev) as builds, \
+            _Walls(metrics, "make_binomial_metrics", dev) as scans:
+        model = _cv_gbm(train, valid, calib)
+    train_s = time.perf_counter() - t0
+    launches, flat, grams = (hist.GROUPED_LAUNCHES, hist.LAUNCHES,
+                             gram.GRAM_LAUNCHES)
+    folds = model.output.cv_models
+    trees = sum(m.ntrees for m in folds) + model.ntrees
+    fa = model.output.cv_fold_assignment.vec(0).to_numpy()
+    hold = model.output.cv_holdout_predictions.vec("pYES").to_numpy()
+    cv = model.output.cross_validation_metrics
+    va = model.output.validation_metrics
+    pred = model.predict(valid)
+    p0 = pred.vec("cal_p0").data[:valid.nrow]
+    p1 = pred.vec("cal_p1").data[:valid.nrow]
+    cal_err = float((p0 + p1 - 1).abs().max())
+    cal_auc = metrics.make_binomial_metrics(
+        valid.vec("IsDepDelayed").data[:valid.nrow], p1).auc
+    print("import_cv_gbm", json.dumps(dict(
+        train_rows=train.nrow, valid_rows=valid.nrow, calib_rows=calib.nrow,
+        train_s=train_s, fold_build_s=builds.s[:-1], main_build_s=builds.s[-1],
+        metrics_scans=len(scans.s), metrics_scan_s=sum(scans.s),
+        trees=trees, grouped_launches=launches, flat_launches=flat,
+        cv_auc=cv.auc, valid_auc=va.auc, calibrated_valid_auc=cal_auc,
+        platt=list(model.calib), cal_sum_max_err=cal_err,
+        fold_rows=np.bincount(fa.astype(np.int64)).tolist(),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)),
+        flush=True)
+    _check(len(folds) == 5 and len(builds.s) == 6, "import_cv_gbm: 5 folds")
+    _check(fa.shape == (train.nrow,) and set(np.unique(fa)) == set(range(5)),
+           "import_cv_gbm: the fold assignment does not cover the train rows "
+           "with 5 folds")
+    _check(hold.shape == (train.nrow,) and bool(np.isfinite(hold).all()),
+           "import_cv_gbm: holdout predictions not finite on every row")
+    for what, auc in (("CV", cv.auc), ("validation", va.auc),
+                      ("calibrated", cal_auc)):
+        _check(bool(np.isfinite(auc)) and auc > 0.6,
+               f"import_cv_gbm: {what} AUC {auc}")
+    _check(cal_err <= 1e-6, f"import_cv_gbm: cal_p0 + cal_p1 off 1 by "
+                            f"{cal_err}")
+    _check(launches == trees * 5 and flat == 0 and grams == 0,
+           f"import_cv_gbm: {launches} grouped, {flat} flat, {grams} Gram "
+           f"launches for {trees} trees of depth 5")
+    # after the counted run: the kernel against its plain version on what
+    # this path feeds it
+    return launches, _import_hist_levels(dev, model, train)
+
+
+def phase_import_cv_glm(dev, train, valid) -> tuple[int, dict]:
+    """The one-hot binomial GLM with CV on the imported split; returns its
+    Gram launches and the Gram kernel's time at this path's design."""
+    import torch
+
+    from h2o_tpu_torch import GLM
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    gram.GRAM_LAUNCHES = hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Walls(GLM, "build_impl", dev) as builds:
+        model = _cv_glm(train, valid)
+    train_s = time.perf_counter() - t0
+    launches = gram.GRAM_LAUNCHES
+    hist_launches = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    fits = model.output.cv_models + [model]
+    iters = [m.output.scoring_history[-1]["iterations"] for m in fits]
+    P = len(model.dinfo.expanded_names) + 1
+    cv, va = (model.output.cross_validation_metrics,
+              model.output.validation_metrics)
+    devs = [(m.output.training_metrics.residual_deviance,
+             m.output.training_metrics.null_deviance) for m in fits]
+    # the kernel at this path's design, after the counted run: the main
+    # fit's one-hot X, held against the plain version on the same inputs
+    # (W an IRLS-like weight in [0, 0.25), zero on the rows the fit drops)
+    Xi, ok = model.dinfo.expand(train, intercept=True)
+    g = torch.Generator(device=dev).manual_seed(690)
+    R = Xi.shape[0]
+    W = torch.rand((R,), generator=g, device=dev) * 0.25 * ok.float()
+    z = torch.randn((R,), generator=g, device=dev)
+    shape = _gram_check(Xi.contiguous(), W, z, reps=3)
+    del Xi, ok, W, z
+    torch.cuda.empty_cache()
+    print("import_cv_glm", json.dumps(dict(
+        train_rows=train.nrow, P=P, train_s=train_s, fit_s=builds.s,
+        iterations=iters, gram_launches=launches,
+        hist_launches=hist_launches, cv_auc=cv.auc, valid_auc=va.auc,
+        deviances=devs, peak_mem_gb=peak, gram_at_path=shape)), flush=True)
+    _check(P == 690, f"import_cv_glm: P = {P}, want 690")
+    _check(len(fits) == 6 and launches == sum(iters) and hist_launches == 0,
+           f"import_cv_glm: {launches} Gram launches for {sum(iters)} IRLS "
+           f"iterations over {len(fits)} fits, {hist_launches} histogram "
+           "launches")
+    _check(all(r < n for r, n in devs),
+           f"import_cv_glm: residual not below null deviance: {devs}")
+    for what, auc in (("CV", cv.auc), ("validation", va.auc)):
+        _check(bool(np.isfinite(auc)) and auc > 0.6,
+               f"import_cv_glm: {what} AUC {auc}")
+    return launches, shape
+
+
+def phase_import_cv_card_vs_cpu(dev) -> None:
+    """A 100,000-row CSV of the same generator through the whole path on
+    the card and on the CPU: the same frame, folds, forests, Platt
+    coefficients, coefficients and CV metrics."""
+    import torch
+
+    from h2o_tpu_torch import split_frame
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "airlines_small.csv")
+    try:
+        _write_airlines_csv(path, IMPORT_CPU_ROWS)
+        frames = {d: _import_airlines(path, d) for d in (dev, "cpu")}
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    a, b = frames[dev], frames["cpu"]
+    _check(a.types() == b.types(), "import 100k: types differ")
+    for name in a.names:
+        va, vb = a.vec(name), b.vec(name)
+        _check(va.domain == vb.domain and np.array_equal(
+            va.data.cpu().numpy().view(np.int32),
+            vb.data.numpy().view(np.int32)),
+            f"import 100k: {name} differs between card and CPU")
+    gbms, glms = {}, {}
+    for d, fr in frames.items():
+        t0 = time.perf_counter()
+        train, valid, calib = split_frame(fr, ratios=[0.7, 0.15], seed=42)
+        gbms[d] = _cv_gbm(train, valid, calib)
+        t1 = time.perf_counter()
+        glms[d] = _cv_glm(train, valid)
+        print(f"import_cv_card_vs_cpu {d}: gbm {t1 - t0:.3f} s, glm "
+              f"{time.perf_counter() - t1:.3f} s", flush=True)
+    ga, gb = gbms[dev], gbms["cpu"]
+    _check(np.array_equal(ga.output.cv_fold_assignment.vec(0).to_numpy(),
+                          gb.output.cv_fold_assignment.vec(0).to_numpy()),
+           "import 100k: fold assignments differ")
+    val_err = platt_err = 0.0
+    for ma, mb in zip(ga.output.cv_models + [ga], gb.output.cv_models + [gb]):
+        for k in ("feat", "nanL", "catd"):
+            _check(torch.equal(ma.forest[k].cpu(), mb.forest[k]),
+                   f"import 100k GBM: {k} differs between card and CPU")
+        _check(np.array_equal(_split_bins(ma), _split_bins(mb)),
+               "import 100k GBM: split bins differ")
+        val_err = max(val_err, float((ma.forest["val"].cpu()
+                                      - mb.forest["val"]).abs().max()))
+        platt_err = max(platt_err, float(np.abs(np.subtract(ma.calib,
+                                                            mb.calib)).max()))
+    ha = ga.output.cv_holdout_predictions.vec("pYES").to_numpy()
+    hb = gb.output.cv_holdout_predictions.vec("pYES").to_numpy()
+    pred_err = float(np.abs(ha - hb).max())
+    cva, cvb = (ga.output.cross_validation_metrics,
+                gb.output.cross_validation_metrics)
+    gbm_cv_err = max(abs(getattr(cva, k) - getattr(cvb, k))
+                     for k in ("auc", "logloss", "mse"))
+    coef_err = 0.0
+    for ma, mb in zip(glms[dev].output.cv_models + [glms[dev]],
+                      glms["cpu"].output.cv_models + [glms["cpu"]]):
+        coef_err = max(coef_err, float(np.max(
+            np.abs(ma.beta - mb.beta) / np.maximum(1.0, np.abs(mb.beta)))))
+    la, lb = (glms[dev].output.cross_validation_metrics,
+              glms["cpu"].output.cross_validation_metrics)
+    glm_cv_err = max(abs(getattr(la, k) - getattr(lb, k))
+                     for k in ("auc", "logloss", "mse"))
+    print("import_cv_card_vs_cpu", json.dumps(dict(
+        rows=IMPORT_CPU_ROWS, leaf_max_abs_err=val_err,
+        holdout_pred_max_abs_err=pred_err, platt_max_abs_err=platt_err,
+        gbm_cv_metric_max_abs_err=gbm_cv_err, glm_coef_max_rel_err=coef_err,
+        glm_cv_metric_max_abs_err=glm_cv_err, gbm_cv_auc_card=cva.auc,
+        glm_cv_auc_card=la.auc)), flush=True)
+    _check(val_err <= CPU_TOL and pred_err <= CPU_TOL,
+           f"import 100k GBM: leaves off by {val_err}, holdout predictions "
+           f"by {pred_err}")
+    _check(platt_err <= CPU_TOL, f"import 100k: Platt (a, b) off by "
+                                 f"{platt_err}")
+    _check(gbm_cv_err <= CPU_TOL, f"import 100k: GBM CV metrics off by "
+                                  f"{gbm_cv_err}")
+    _check(coef_err <= GLM_COEF_TOL, f"import 100k: GLM coefficients off by "
+                                     f"{coef_err} x max(1, |beta|)")
+    _check(glm_cv_err <= GLM_COEF_TOL, f"import 100k: GLM CV metrics off by "
+                                       f"{glm_cv_err}")
 
 
 def main() -> int:
@@ -1289,6 +1809,12 @@ def main() -> int:
     for line in kernels.BUILD_LOG.splitlines():
         if "registers" in line or "smem" in line:
             print("ptxas", line.strip(), flush=True)
+    # the parser's host tokenizer, built before its parse is timed
+    from h2o_tpu_torch.io import parser
+    t0 = time.perf_counter()
+    parser._csv_library()
+    print(f"csv tokenizer build: {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     phases = {}
 
@@ -1330,6 +1856,18 @@ def main() -> int:
         d, cov, 10, True, "xrt_train", covtype["wrapper"]))
     del cov
     run("drf_card_vs_cpu", phase_drf_card_vs_cpu)
+    from h2o_tpu_torch import split_frame
+
+    imported, _parse = run("import_csv", phase_import_csv)
+    train, valid, calib = split_frame(imported, ratios=[0.7, 0.15], seed=42)
+    del imported
+    cv_gbm_launches, hist_at_path = run(
+        "import_cv_gbm", lambda d: phase_import_cv_gbm(d, train, valid,
+                                                       calib))
+    cv_glm_launches, gram_at_path = run(
+        "import_cv_glm", lambda d: phase_import_cv_glm(d, train, valid))
+    del train, valid, calib
+    run("import_cv_card_vs_cpu", phase_import_cv_card_vs_cpu)
     print("phase_s", json.dumps(phases), flush=True)
     # the covertype path's numbers join the entry of the wrapper its plan
     # picks: its launches, and its three levels' sums
@@ -1342,9 +1880,11 @@ def main() -> int:
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         per_level_ms=[r["ms"] for r in levels], bound_by="bytes")
     paths = {"level_hist": dict(train=launches, xgboost_train=xgb_launches),
-             "level_hist_grouped": dict(airlines_train=grouped_launches),
+             "level_hist_grouped": dict(airlines_train=grouped_launches,
+                                        import_cv_gbm=cv_gbm_launches),
              "gram": dict(glm_train=gram_launches,
-                          xgboost_gblinear=gblinear_launches)}
+                          xgboost_gblinear=gblinear_launches,
+                          import_cv_glm=cv_glm_launches)}
     cov_entry = ("level_hist" if covtype["wrapper"] == "flat"
                  else "level_hist_grouped")
     paths[cov_entry].update(cov_nums["launches_by_path"])
@@ -1368,6 +1908,14 @@ def main() -> int:
             e["covtype"] = cov_nums
         if name == "level_hist":
             e["higgs_depth6"] = flat["depth6"]
+        if name == "level_hist_grouped":
+            e["import_cv_gbm_levels"] = hist_at_path
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   hist_at_path["max_abs_err"])
+        if name == "gram":
+            e["import_cv_glm_shape"] = gram_at_path
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   gram_at_path["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

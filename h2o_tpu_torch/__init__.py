@@ -4,7 +4,12 @@ The JAX package ``h2o_tpu`` stays the reference; this package mirrors its
 module layout so each port module sits at the same relative path as its
 counterpart, and never imports ``jax`` or anything of ``h2o_tpu``.
 
-Scope so far: GBM (every built-in distribution, quantile and huber leaves,
+Scope so far: the user's front door — ``import_file`` (CSV/TSV, plain,
+``.gz`` or ``.zip``, through the port's own C++ tokenizer on the host
+with the reference's type, NA and interning rules), ``split_frame`` and
+string, time and exact-integer columns; cross-validation for every builder
+(``nfolds``, ``fold_column``, the fold assignments), Platt calibration,
+custom distributions and the multinomial AUC family; GBM (every built-in distribution, quantile and huber leaves,
 monotone and interaction constraints, early stopping, variable importances)
 and DRF/XRT on numeric and categorical features, and XGBoost (gbtree, DART,
 gblinear) over them, trained and scored end to end —
@@ -28,13 +33,16 @@ for a CPU tensor, the hand-written kernel for a CUDA tensor.
 """
 
 from .frame.frame import Frame
+from .frame.split import split_frame
 from .frame.vec import Vec
+from .io.parser import ParseSetup, import_file
 from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
                          XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.glm import GLM, GLMModel, GLMParameters
 from .models.xgboost import XGBoost, XGBoostParameters
 
-__all__ = ["Frame", "Vec", "GBM", "GBMModel", "GBMParameters", "DRF",
-           "DRFModel", "DRFParameters", "XRT", "XRTParameters", "GLM",
-           "GLMModel", "GLMParameters", "XGBoost", "XGBoostParameters"]
+__all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
+           "GBM", "GBMModel", "GBMParameters", "DRF", "DRFModel",
+           "DRFParameters", "XRT", "XRTParameters", "GLM", "GLMModel",
+           "GLMParameters", "XGBoost", "XGBoostParameters"]

@@ -31,10 +31,12 @@ import torch
 
 from ..backend.memory import hbm_budget_bytes
 from ..frame.chunks import BinnedView
+from ..frame.vec import Vec
 from ..parallel.mesh import resolve_device
 from ..utils import threefry
-from .distributions import Bernoulli, Gaussian, Multinomial, get_distribution
-from .metrics import check_auc_type, make_metrics
+from .distributions import (Bernoulli, Gaussian, Multinomial, _sigmoid,
+                            get_distribution)
+from .metrics import make_metrics
 from .model_base import Model, ModelBuilder, ModelOutput, Parameters
 from .tree.binning import compute_bin_edges_cols
 from .tree.engine import (TreeConfig, plan_hist_groups, predict_forest,
@@ -91,9 +93,22 @@ class GBMModel(Model):
         # min(level, n_edges)); only read when cfg.use_sets
         self.cat_nedges = cat_nedges
 
+    calib = None    # (a, b) Platt coefficients when calibrate_model was set
+
     @property
     def ntrees(self) -> int:
         return int(self.forest["feat"].shape[0])
+
+    def predict(self, fr):
+        out = super().predict(fr)
+        if self.calib is not None:
+            # `CalibrationHelper.postProcessPredictions`: cal_p columns
+            a, b = self.calib
+            pc = torch.clamp(out.vec(2).data, 1e-6, 1 - 1e-6)
+            cal = _sigmoid(a * torch.log(pc / (1 - pc)) + b)
+            out.add("cal_p0", Vec(1.0 - cal, fr.nrow))
+            out.add("cal_p1", Vec(cal, fr.nrow))
+        return out
 
     def _set_args(self):
         """(catd, iscat, nedges) for `predict_forest` on the forest's device
@@ -204,7 +219,8 @@ def _metrics_raw(category, dist, f, drf_mode: bool, ntrees: int):
     return torch.cat([label[:, None], p], dim=1)
 
 
-def _oob_metrics(category, osum, ocnt, y, ymask, w, auc_type="AUTO"):
+def _oob_metrics(category, osum, ocnt, y, ymask, w, auc_type="AUTO",
+                 domain=None):
     """Metrics over the out-of-bag outputs: rows never out of bag (tiny
     forests) are left out, like the reference's OOB scorer. None when no
     row was."""
@@ -223,7 +239,8 @@ def _oob_metrics(category, osum, ocnt, y, ymask, w, auc_type="AUTO"):
         p = p / torch.sum(p, dim=1, keepdim=True)
         label = torch.argmax(p, dim=1).to(torch.float32)
         raw = torch.cat([label[:, None], p], dim=1)
-    return make_metrics(category, ym, raw, w, auc_type=auc_type)
+    return make_metrics(category, ym, raw, w, auc_type=auc_type,
+                        domain=domain)
 
 
 class GBM(ModelBuilder):
@@ -231,17 +248,6 @@ class GBM(ModelBuilder):
     drf_mode = False
     model_class = GBMModel
     _constant_response_check = True  # `hex/tree/SharedTree.init` check
-
-    def _validate(self):
-        super()._validate()
-        p = self.params
-        for bad, what in ((p.calibrate_model,
-                           "calibrate_model (ROADMAP Queue 1 item 6)"),
-                          (p.custom_distribution_func is not None,
-                           "custom distributions (ROADMAP Queue 1 item 6)")):
-            if bad:
-                raise NotImplementedError(f"{self.algo_name}: {what} is not "
-                                          f"ported yet")
 
     def _tree_config(self, K: int, nbins: int) -> TreeConfig:
         p = self.params
@@ -267,9 +273,10 @@ class GBM(ModelBuilder):
         p = self.params
         name = (p.distribution or "AUTO").lower()
         if name == "custom":
-            # a given custom_distribution_func is refused by _validate
-            raise ValueError("distribution='custom' requires "
-                             "custom_distribution_func")
+            if p.custom_distribution_func is None:
+                raise ValueError("distribution='custom' requires "
+                                 "custom_distribution_func")
+            return p.custom_distribution_func
         if name == "auto":
             name = {"Binomial": "bernoulli", "Multinomial": "multinomial",
                     "Regression": "gaussian"}[category]
@@ -319,8 +326,6 @@ class GBM(ModelBuilder):
         dev = fr.device
         names = self.feature_names()
         y_dev, category, resp_domain = self.response_info()
-        if category == "Multinomial":
-            check_auc_type(p.auc_type)
         K = len(resp_domain) if category == "Multinomial" else 1
         dist = self._distribution(category)
         is_cat = np.array([fr.vec(n).is_categorical() for n in names])
@@ -416,14 +421,15 @@ class GBM(ModelBuilder):
             m = None
             if self.drf_mode and p.sample_rate < 1.0:
                 m = _oob_metrics(s.category, oob_sum, oob_cnt, s.y, s.ymask,
-                                 weights, p.auc_type)
+                                 weights, p.auc_type, output.response_domain)
                 if m is not None:
                     m.description = "Reported on OOB data"
             if m is None:
                 m = make_metrics(s.category, s.ym,
                                  _metrics_raw(s.category, dist, f,
                                               self.drf_mode, ntrees_done),
-                                 weights, auc_type=p.auc_type)
+                                 weights, auc_type=p.auc_type,
+                                 domain=output.response_domain)
             history.append({"timestamp": time.time(),
                             "number_of_trees": ntrees_done,
                             "training_metrics": m})
@@ -436,10 +442,44 @@ class GBM(ModelBuilder):
         output.variable_importances = _varimp(forest, s.names)
         model = self.model_class(p, output, forest, s.f0, dist, cfg, s.is_cat,
                                  edges=s.edges_np, cat_nedges=s.nedges_np)
+        if p.calibrate_model:
+            model.calib = self._fit_calibration(model, s.category)
         if p.validation_frame is not None:
             output.validation_metrics = model.model_performance(
                 p.validation_frame)
         return model
+
+    def _fit_calibration(self, model, category):
+        """Platt scaling on ``calibration_frame``
+        (`hex/tree/CalibrationHelper`): sigmoid(a f + b) fitted to the
+        actuals by 25 two-parameter Newton steps on the model's margin (a
+        DRF's probability through a clipped logit), in float32 as the
+        reference fits it; the 2x2 solves on the host."""
+        p = self.params
+        if category != "Binomial":
+            raise ValueError("calibrate_model requires a binomial model")
+        if p.calibration_frame is None:
+            raise ValueError("calibrate_model requires calibration_frame")
+        cf = p.calibration_frame
+        f = model._raw_f(model.adapt_frame(cf))
+        if model.cfg.drf_mode:
+            pc = torch.clamp(f, 1e-6, 1 - 1e-6)
+            f = torch.log(pc / (1 - pc))
+        yv = cf.vec(p.response_column).data
+        y = torch.nan_to_num(yv)
+        wm = (~torch.isnan(yv)).to(torch.float32)
+        ab = np.array([1.0, 0.0], dtype=np.float32)
+        for _ in range(25):
+            mu = _sigmoid(float(ab[0]) * f + float(ab[1]))
+            g_eta = wm * (mu - y)
+            h_eta = torch.clamp(wm * mu * (1 - mu), min=1e-10)
+            s = torch.stack([torch.sum(g_eta * f), torch.sum(g_eta),
+                             torch.sum(h_eta * f * f), torch.sum(h_eta * f),
+                             torch.sum(h_eta)]).cpu().numpy()
+            H = np.array([[s[2], s[3]], [s[3], s[4]]], dtype=np.float32)
+            ab = ab - np.linalg.solve(H + np.float32(1e-8) * np.eye(
+                2, dtype=np.float32), s[:2])
+        return (float(ab[0]), float(ab[1]))
 
 
     def _should_stop(self, m, series) -> bool:

@@ -553,7 +553,8 @@ class GLM(ModelBuilder):
         model = GLMModel(p, output, dinfo, beta, family)
         raw = model.score0(X)
         ym = torch.where(w > 0, y, torch.nan)
-        m = make_metrics(category, ym, raw, w if p.weights_column else None)
+        m = make_metrics(category, ym, raw, w if p.weights_column else None,
+                         auc_type=p.auc_type, domain=output.response_domain)
         m.residual_deviance = float(dev)
         m.null_deviance = float(nulldev)
         rank = int(np.sum(np.abs(np.asarray(beta)) > 1e-12))

@@ -2,13 +2,19 @@
 
 ``Parameters`` keeps the reference's field names and defaults so the two
 packages take the same arguments. ``train_model`` runs the build
-synchronously on the training frame's device; jobs, the K/V store,
-cross-validation, checkpoints and checkpoint exports wait for a later
-slice, and options that need them raise ``NotImplementedError``.
+synchronously on the training frame's device, with N-fold
+cross-validation (`hex/ModelBuilder.java:614` computeCrossValidation) when
+``nfolds`` or ``fold_column`` asks for it: fold assignment (random, modulo
+or stratified from numpy's ``default_rng(seed)``, or the fold column), one
+model per fold on the complement, holdout metrics and predictions, then
+the main model on the whole frame. Jobs, the K/V store, checkpoints and
+checkpoint exports wait for a later slice, and options that need them
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -18,6 +24,7 @@ import torch
 
 from ..frame.frame import Frame
 from ..frame.vec import T_CAT, Vec
+from ..parallel.mesh import padded_len
 from .metrics import make_metrics
 
 
@@ -33,6 +40,10 @@ class Parameters:
     offset_column: Optional[str] = None
     fold_column: Optional[str] = None
     nfolds: int = 0
+    fold_assignment: str = "AUTO"  # AUTO|Random|Modulo|Stratified
+    keep_cross_validation_models: bool = True
+    keep_cross_validation_predictions: bool = False
+    keep_cross_validation_fold_assignment: bool = False
     seed: int = -1
     distribution: str = "AUTO"
     ignore_const_cols: bool = True
@@ -40,7 +51,8 @@ class Parameters:
     stopping_rounds: int = 0
     stopping_metric: str = "AUTO"
     stopping_tolerance: float = 1e-3
-    auc_type: str = "AUTO"  # multinomial AUC aggregate: AUTO (= NONE) only
+    auc_type: str = "AUTO"  # multinomial AUC aggregate: AUTO(=NONE)|NONE|
+                            # MACRO_OVR|WEIGHTED_OVR|MACRO_OVO|WEIGHTED_OVO
     checkpoint: Any = None
     export_checkpoints_dir: Optional[str] = None
 
@@ -55,9 +67,14 @@ class ModelOutput:
         self.model_category = "Regression"
         self.training_metrics = None
         self.validation_metrics = None
+        self.cross_validation_metrics = None
         self.scoring_history: list[dict] = []
         self.variable_importances: dict | None = None
         self.run_time_ms = 0
+        self.cv_models: list = []
+        self.cv_holdout_predictions = None   # Frame, when kept
+        self.cv_fold_predictions = None      # one Frame per fold, when kept
+        self.cv_fold_assignment = None       # Frame, when kept
 
 
 class Model:
@@ -121,7 +138,8 @@ class Model:
         y = _response_device(fr, p.response_column,
                              self.output.response_domain)
         return make_metrics(self.output.model_category, y, raw, w,
-                            auc_type=p.auc_type)
+                            auc_type=p.auc_type,
+                            domain=self.output.response_domain)
 
 
 def _response_device(fr: Frame, response: str, train_dom) -> torch.Tensor:
@@ -154,13 +172,17 @@ class ModelBuilder:
         p = self.params
         if p.training_frame is None:
             raise ValueError("training_frame is required")
+        at = (p.auc_type or "AUTO").lower()
+        if at not in ("auto", "none", "macro_ovr", "weighted_ovr",
+                      "macro_ovo", "weighted_ovo"):
+            raise ValueError(
+                f"auc_type '{p.auc_type}' must be one of AUTO, NONE, "
+                "MACRO_OVR, WEIGHTED_OVR, MACRO_OVO, WEIGHTED_OVO")
         if not p.response_column:
             raise ValueError(f"{self.algo_name}: response_column is required")
         if p.training_frame.find(p.response_column) < 0:
             raise ValueError(f"response_column '{p.response_column}' not in frame")
-        for bad, what in ((p.nfolds >= 2 or p.fold_column,
-                           "cross-validation (ROADMAP Queue 1 item 6)"),
-                          (p.offset_column and not self._offset_supported,
+        for bad, what in ((p.offset_column and not self._offset_supported,
                            "offset columns (ROADMAP Queue 1 item 6)"),
                           (p.checkpoint is not None,
                            "checkpoints (ROADMAP Queue 1 item 12)"),
@@ -186,7 +208,7 @@ class ModelBuilder:
                                          p.offset_column, p.fold_column, None}
         out = []
         for name in p.training_frame.names:
-            if name in skip:
+            if name in skip or p.training_frame.vec(name).is_string():
                 continue
             if p.ignore_const_cols:
                 r = p.training_frame.vec(name).rollups()
@@ -204,6 +226,10 @@ class ModelBuilder:
         """(y tensor, model_category, response domain)."""
         p = self.params
         v = p.training_frame.vec(p.response_column)
+        if v.is_string():
+            raise ValueError(
+                f"{self.algo_name}: response_column '{p.response_column}' "
+                "is a string column — convert it to categorical first")
         if v.is_categorical():
             cat = "Binomial" if len(v.domain) == 2 else "Multinomial"
             return v.data, cat, v.domain
@@ -219,11 +245,113 @@ class ModelBuilder:
         raise NotImplementedError
 
     def train_model(self) -> Model:
-        """Build synchronously; ``run_time_ms`` is taken after the device
-        has finished the model's work."""
+        """Build synchronously (with cross-validation when ``nfolds`` >= 2
+        or a ``fold_column`` asks for it); ``run_time_ms`` is taken after
+        the device has finished the model's work."""
         t0 = time.perf_counter()
-        model = self.build_impl()
+        p = self.params
+        if p.nfolds >= 2 or p.fold_column:
+            model = self._train_with_cv()
+        else:
+            model = self.build_impl()
         if self.params.training_frame.device.type == "cuda":
             torch.cuda.synchronize(self.params.training_frame.device)
         model.output.run_time_ms = int((time.perf_counter() - t0) * 1000)
         return model
+
+    # -- cross-validation (`hex/ModelBuilder.java:614`) -----------------------
+    def _train_with_cv(self) -> Model:
+        """One model per fold on the other folds' rows, scored on its own
+        fold, then the main model on the whole frame. Each fold builder
+        takes the parameters with the fold's frame, no validation frame
+        and no folds, as the reference's does."""
+        p = self.params
+        fr = p.training_frame
+        folds = self._fold_assignment(fr)
+        nf = int(folds.max()) + 1
+        cv_models, holdout_metrics, fold_preds = [], [], []
+        holdout = names = None
+        for f in range(nf):
+            tr_idx = np.flatnonzero(folds != f)
+            va_idx = np.flatnonzero(folds == f)
+            va = fr.take(va_idx)
+            sub = type(self)(dataclasses.replace(
+                p, training_frame=fr.take(tr_idx), validation_frame=None,
+                nfolds=0, fold_column=None))
+            m = sub.build_impl()
+            holdout_metrics.append(m.model_performance(va))
+            if p.keep_cross_validation_predictions:
+                pf = m.predict(va)
+                cols = torch.stack([v.data[:va.nrow] for v in pf.vecs],
+                                   dim=1)
+                idx = torch.from_numpy(va_idx).to(cols.device)
+                if holdout is None:
+                    names = pf.names
+                    holdout = torch.full((fr.nrow, pf.ncol), float("nan"),
+                                         device=cols.device)
+                holdout[idx] = cols
+                full = torch.zeros((fr.nrow, pf.ncol), device=cols.device)
+                full[idx] = cols
+                fold_preds.append(_columns_frame(names, full))
+            cv_models.append(m)
+        main = self.build_impl()
+        main.output.cross_validation_metrics = _mean_metrics(holdout_metrics)
+        if p.keep_cross_validation_models:
+            main.output.cv_models = cv_models
+        if holdout is not None:
+            main.output.cv_holdout_predictions = _columns_frame(names, holdout)
+            main.output.cv_fold_predictions = fold_preds
+        if p.keep_cross_validation_fold_assignment:
+            main.output.cv_fold_assignment = Frame(
+                ["fold_assignment"],
+                [Vec.from_numpy(folds.astype(np.float32), device=fr.device)])
+        return main
+
+    def _fold_assignment(self, fr: Frame) -> np.ndarray:
+        """Each row's fold: the fold column, or AUTO/Random, Modulo or
+        Stratified draws from numpy's ``default_rng(seed)``."""
+        p = self.params
+        if p.fold_column:
+            return fr.vec(p.fold_column).to_numpy().astype(np.int64)
+        n = fr.nrow
+        scheme = p.fold_assignment.upper()
+        rng = np.random.default_rng(None if p.seed in (-1, None) else p.seed)
+        if scheme == "MODULO":
+            return np.arange(n) % p.nfolds
+        if scheme == "STRATIFIED":
+            y = fr.vec(p.response_column).to_numpy()
+            out = np.zeros(n, dtype=np.int64)
+            for cls in np.unique(y[~np.isnan(y)]):
+                idx = np.where(y == cls)[0]
+                out[idx] = rng.permutation(len(idx)) % p.nfolds
+            return out
+        return rng.integers(0, p.nfolds, size=n)
+
+
+def _columns_frame(names, cols: torch.Tensor) -> Frame:
+    """(nrow, C) prediction columns -> a Frame of numeric columns."""
+    nrow = cols.shape[0]
+    vecs = []
+    for j in range(cols.shape[1]):
+        buf = torch.full((padded_len(nrow),), float("nan"),
+                         device=cols.device)
+        buf[:nrow] = cols[:, j]
+        vecs.append(Vec(buf, nrow))
+    return Frame(list(names), vecs)
+
+
+def _mean_metrics(ms: list):
+    """The reference's CV metrics: fold 0's holdout metrics object with its
+    seven scalar fields replaced by their means over the folds (NaNs
+    skipped). H2O-3 pools the holdout predictions instead; the port keeps
+    the reference's form (ROADMAP Queue 3)."""
+    if not ms:
+        return None
+    out = ms[0]
+    for fname in ("mse", "rmse", "mae", "auc", "logloss", "r2",
+                  "mean_per_class_error"):
+        vals = [getattr(m, fname) for m in ms if hasattr(m, fname)]
+        vals = [v for v in vals if v is not None and not np.isnan(v)]
+        if vals and hasattr(out, fname):
+            setattr(out, fname, float(np.mean(vals)))
+    return out

@@ -221,7 +221,8 @@ class XGBoost(GBM):
                 m = make_metrics(
                     s.category, s.ym,
                     _metrics_raw(s.category, s.dist, f0b + S, False, t + 1),
-                    s.w if p.weights_column else None, auc_type=p.auc_type)
+                    s.w if p.weights_column else None, auc_type=p.auc_type,
+                    domain=s.resp_domain)
                 history.append({"timestamp": time.time(),
                                 "number_of_trees": t + 1,
                                 "training_metrics": m})
@@ -249,6 +250,9 @@ class XGBoost(GBM):
         model = GBMModel(p, output, forest, s.f0, s.dist, cfg, s.is_cat,
                          edges=s.edges_np, cat_nedges=s.nedges_np)
         model.dropped_trees = drops
+        if p.calibrate_model:
+            # the leaves are baked: the calibrator sees the final margin
+            model.calib = self._fit_calibration(model, s.category)
         if p.validation_frame is not None:
             output.validation_metrics = model.model_performance(
                 p.validation_frame)

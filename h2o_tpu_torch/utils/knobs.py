@@ -34,6 +34,9 @@ _knob("H2O_TORCH_EXACT_BIN_ROWS", "int", 16384,
 _knob("H2O_TORCH_HIST_SEG_WIDTH", "int", 8,
       "bin widths at/below this form segment-sum buckets in "
       "plan_hist_groups (models/tree/engine.py)")
+_knob("H2O_TORCH_MAX_FRAME_BYTES", "int", 60 * 1024 ** 3,
+      "refuse parses whose float32 device frame would exceed this "
+      "(io/parser.py; the FrameSizeMonitor of `h2o_tpu/io/parser.py:115`)")
 
 
 def _declared(name: str) -> Knob:

@@ -1,7 +1,8 @@
 """Card tests of the port's CUDA kernels against their plain versions: the
 level histogram through its flat and grouped wrappers, the weighted Gram,
 and small GLM, DRF, GBM-option and XGBoost fits on the card against the
-same fits on the CPU.
+same fits on the CPU; a CSV imported on both devices and a GBM with
+cross-validation and calibration on it, and the multinomial AUC types.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -570,3 +571,65 @@ def test_small_xgboost_on_the_card_matches_the_cpu(dev):
     assert na == la.output.scoring_history[-1]["iterations"] and nb == 0
     assert np.all(np.abs(la.beta - lb.beta)
                   <= 1e-4 * np.maximum(1.0, np.abs(lb.beta)))
+
+
+def test_import_and_cv_on_the_card_match_the_cpu(dev, tmp_path):
+    """The front door at 20k rows: the airlines CSV parsed on both devices
+    gives the same frame; ``take`` of the same rows, then a GBM with 3-fold
+    CV and calibration: the same folds, equal fold and main forests (leaves
+    within 1e-5), holdout predictions, CV metrics and Platt (a, b) within
+    1e-5, and grouped launches = trees x depth on the card."""
+    import chip_smoke as cs
+
+    path = str(tmp_path / "airlines.csv")
+    cs._write_airlines_csv(path, 20_000)
+    idx = np.random.default_rng(0).permutation(20_000)
+    models, launches, frames = {}, {}, {}
+    for d in (dev, "cpu"):
+        fr = frames[d] = cs._import_airlines(path, d)
+        before = hist.GROUPED_LAUNCHES
+        models[d] = cs._cv_gbm(fr.take(idx[:15_000]), fr.take(idx[15_000:]),
+                               fr.take(idx[:5_000]), ntrees=3, max_depth=4,
+                               nfolds=3, min_rows=10.0)
+        launches[d] = hist.GROUPED_LAUNCHES - before
+    a, b = models[dev], models["cpu"]
+    trees = sum(m.ntrees for m in b.output.cv_models) + b.ntrees
+    assert launches == {dev: trees * 4, "cpu": 0}
+    for name in frames["cpu"].names:
+        va, vb = frames[dev].vec(name), frames["cpu"].vec(name)
+        assert va.type == vb.type and va.domain == vb.domain
+        assert np.array_equal(va.data.cpu().numpy(), vb.data.numpy(),
+                              equal_nan=True)
+    assert np.array_equal(a.output.cv_fold_assignment.vec(0).to_numpy(),
+                          b.output.cv_fold_assignment.vec(0).to_numpy())
+    for ma, mb in zip(a.output.cv_models + [a], b.output.cv_models + [b]):
+        for k in ("feat", "nanL", "catd"):
+            assert torch.equal(ma.forest[k].cpu(), mb.forest[k])
+        assert float((ma.forest["val"].cpu()
+                      - mb.forest["val"]).abs().max()) <= 1e-5
+        assert np.abs(np.subtract(ma.calib, mb.calib)).max() <= 1e-5
+    ha = a.output.cv_holdout_predictions.vec("pYES").to_numpy()
+    hb = b.output.cv_holdout_predictions.vec("pYES").to_numpy()
+    assert float(np.abs(ha - hb).max()) <= 1e-5
+    for k in ("auc", "logloss", "mse"):
+        assert abs(getattr(a.output.cross_validation_metrics, k)
+                   - getattr(b.output.cross_validation_metrics, k)) <= 1e-5
+    assert trees == 12
+
+
+def test_multinomial_auc_types_on_the_card_match_the_cpu(dev):
+    """Each ``auc_type`` on the card within 1e-6 of the CPU's (float64
+    sums; ties and weights included)."""
+    from h2o_tpu_torch.models import metrics
+
+    rng = np.random.default_rng(9)
+    n, K = 50_000, 5
+    y = rng.integers(0, K, n).astype(np.float32)
+    p = np.round(rng.dirichlet(np.ones(K), n), 2).astype(np.float32)
+    w = rng.integers(1, 4, n).astype(np.float32)
+    for t in ("MACRO_OVR", "WEIGHTED_OVR", "MACRO_OVO", "WEIGHTED_OVO"):
+        out = {d: metrics.make_multinomial_metrics(
+            torch.from_numpy(y).to(d), torch.from_numpy(p).to(d),
+            torch.from_numpy(w).to(d), auc_type=t) for d in (dev, "cpu")}
+        assert abs(out[dev].auc - out["cpu"].auc) <= 1e-6
+        assert abs(out[dev].pr_auc - out["cpu"].pr_auc) <= 1e-6

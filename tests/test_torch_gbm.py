@@ -215,7 +215,8 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.glm, h2o_tpu_torch.models.datainfo, "
             "h2o_tpu_torch.backend.kernels.gram, h2o_tpu_torch.models.drf, "
             "h2o_tpu_torch.utils.threefry, h2o_tpu_torch.models.xgboost, "
-            "h2o_tpu_torch.models.distributions; "
+            "h2o_tpu_torch.models.distributions, h2o_tpu_torch.io.parser, "
+            "h2o_tpu_torch.frame.split, h2o_tpu_torch.utils.twodimtable; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -227,18 +228,39 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
 @pytest.mark.parametrize("change", [
     dict(nfolds=3), dict(calibrate_model=True), dict(checkpoint="prior_gbm"),
     dict(distribution="custom", custom_distribution_func=tdist.Gaussian()),
-    "multinomial_auc", "goss", "dart_checkpoint",
+    "multinomial_auc", "goss", "dart_checkpoint", "parquet", "avro_uri",
+    "coded_vec",
 ])
-def test_out_of_slice_options_raise(change):
-    """What the port still refuses: each raises naming its ROADMAP item.
-    GOSS has no port knob (the reference reads H2O_TPU_GOSS), so its case
-    is a TreeConfig that asks for it."""
+def test_out_of_slice_options_raise(change, tmp_path):
+    """What the port still refuses raises naming its ROADMAP item: a
+    checkpoint (GBM's, and DART's continuation), GOSS (no port knob: the
+    reference reads H2O_TPU_GOSS, so its case is a TreeConfig that asks for
+    it), file formats other than CSV/TSV and URI schemes, and the chunk
+    codecs. The options a later slice ported are now taken: cross-
+    validation, calibration, a custom distribution (here the port's own
+    Gaussian, which grows the built-in's forest) and the multinomial AUC
+    family; their parity with the reference is in test_torch_cv.py."""
     if change == "goss":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.TreeConfig(goss=(0.2, 0.1)).check_supported()
         return
+    if change in ("parquet", "avro_uri"):
+        from h2o_tpu_torch import import_file
+
+        path = str(tmp_path / "f.parquet")
+        if change == "avro_uri":
+            path = "s3://bucket/f.avro"
+        else:
+            open(path, "wb").close()
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            import_file(path, device="cpu")
+        return
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
+    if change == "coded_vec":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+            fr.compress()
+        return
     kw = dict(KW, ntrees=1)
     builder, params = GBM, GBMParameters
     if change == "multinomial_auc":
@@ -250,5 +272,25 @@ def test_out_of_slice_options_raise(change):
         kw.update(booster="dart", checkpoint="prior_dart")
     else:
         kw.update(change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builder(params(training_frame=fr, **kw)).train_model()
+    if change == dict(calibrate_model=True):
+        kw.update(calibration_frame=fr)
+    if change in (dict(checkpoint="prior_gbm"), "dart_checkpoint"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            builder(params(training_frame=fr, **kw)).train_model()
+        return
+    m = builder(params(training_frame=fr, **kw)).train_model()
+    if change == dict(nfolds=3):
+        assert len(m.output.cv_models) == 3
+        assert np.isfinite(m.output.cross_validation_metrics.auc)
+    elif change == dict(calibrate_model=True):
+        a, b = m.calib
+        assert np.isfinite(a) and np.isfinite(b)
+        assert "cal_p1" in m.predict(fr).names
+    elif change == "multinomial_auc":
+        mm = m.output.training_metrics
+        assert mm.auc_type == "macro_ovr" and 0.0 <= mm.auc <= 1.0
+    else:
+        gm = GBM(GBMParameters(training_frame=fr, **dict(
+            KW, ntrees=1, distribution="gaussian"))).train_model()
+        for k in ("feat", "thr", "nanL", "val"):
+            assert torch.equal(m.forest[k], gm.forest[k])
