@@ -5,14 +5,15 @@
 
 Builds the CUDA kernels from ``h2o_tpu_torch/csrc`` (and the parser's
 host C++ tokenizer), then drives five paths: the flagship numeric GBM
-(HIGGS-shaped, flat histogram plan), XGBoost
+(HIGGS-shaped, flat histogram plan; continued from a checkpoint), XGBoost
 on the same frame (gbtree at depth 6; DART and gblinear against the CPU),
 the airlines-shaped categorical GBM (grouped plan, set splits), the
 HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel) and the
 covertype-shaped multinomial DRF and XRT (depth 12, row and column
 sampling on jax's random streams, out-of-bag metrics); every GBM option of
-the port against the CPU; and H2O's usual workflow from a CSV file on
-disk to cross-validated metrics. In order:
+the port against the CPU; H2O's usual workflow from a CSV file on disk
+to cross-validated metrics; and state that outlives a training process
+(coded columns, model files, snapshots, kill-and-resume). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -36,6 +37,15 @@ disk to cross-validated metrics. In order:
    after 2 scorings without a 1e-3 relative logloss gain, seed 42: requires
    trees built x 6 flat launches and no other, a finite training AUC above
    0.6 and 28 variable importances whose percentages sum to 1 within 1e-5;
+2c. ``checkpoint_higgs``: 5 trees of that GBM, then ``checkpoint=`` that
+   model's key to 10 trees: 25 new flat launches (the prior replays in
+   bin-code space, no histogram), structure and thresholds equal to the
+   ``train`` phase's 10-tree model, leaves and predictions within 1e-5; a
+   10-tree run with ``score_tree_interval=2`` and
+   ``export_checkpoints_dir``: its forest bit-equal to ``train``'s, 5
+   snapshots that each load and score; the continuation saved, loaded by a
+   fresh process on the card that scores a saved 100,000-row slice, bit-
+   equal to this process's scores;
 3. ``card_vs_cpu``: the same GBM on 1M rows x 5 trees on the card and on
    the CPU: equal forest structure (split features, NA directions, split
    bins), leaf values and predictions within 1e-5;
@@ -110,11 +120,24 @@ disk to cross-validated metrics. In order:
     within 1e-5;
 13. ``xrt_train``: the same for XRT (random bin edges), 10 trees, 840
     launches;
+13b. ``recovery_drf``: ``drf_train``'s DRF with ``score_tree_interval=10``
+    and ``auto_recovery_dir`` (a state write at every boundary), killed
+    before its third chunk (``train.gbm.chunk:raise(preempt)@3``) and
+    resumed with ``resume_training``: forest, out-of-bag sums and counts
+    and class probabilities bit-equal to an uninterrupted run at the same
+    parameters; 4,200 launches of the plan's wrapper between the two runs;
+    prints the frame save's seconds and MB/s, the state writes and their
+    seconds, and the resume wall against the uninterrupted wall;
 14. ``drf_card_vs_cpu``: that DRF on 100,000 rows x 5 iterations on the card
     and on the CPU: equal split features, NA directions, split bins, leaf
     values and out-of-bag counts (integer channels), predictions within
     1e-5; and ``model_performance`` under each of the four multinomial
     ``auc_type``s on both devices: within 1e-6, finite, in (0.5, 1];
+14b. ``recovery_card_vs_cpu``: the GBM kill drill at every boundary on 1M
+    HIGGS rows (6 trees, ``score_tree_interval=2``: 3 kills) on the card:
+    each resumed forest and its predictions bit-equal to the card's
+    uninterrupted run, which matches the CPU's within the ``card_vs_cpu``
+    tolerances;
 15. ``import_csv``: writes the airlines generator (seed 116) as a
     7,009,728-row CSV (the row count of the ASA Data Expo 2009 on-time
     file for 2008; levels as strings, ``Distance`` NA on every 97th row,
@@ -126,6 +149,12 @@ disk to cross-validated metrics. In order:
     then writes the same rows with the header and string levels quoted (R's
     ``write.csv``), parses that through the same call and requires the
     frame bit-equal to the unquoted parse, printing its wall and MB/s;
+15b. ``compress_airlines``: ``compress_frame`` on that frame: each
+    column's codec, its coded bytes against raw float32, a bit-equal decode
+    on the card; the batched code-space rollups against the raw ones (NA
+    and zero counts, min and max exact, mean and sigma within 1e-4
+    relative); a 5-tree GBM at ``bench_airlines`` settings on the coded
+    frame bit-equal to one on the raw frame, 25 grouped launches;
 16. ``import_cv_gbm``: ``split_frame(ratios=[0.7, 0.15], seed=42)`` into
     train, valid and calib, then ``bench_airlines``'s GBM (10 trees) on
     train with 5-fold CV (holdout predictions and fold assignment kept),
@@ -151,6 +180,11 @@ disk to cross-validated metrics. In order:
     forests, leaves, holdout predictions, Platt (a, b) and GBM CV metrics
     within 1e-5, GLM coefficients within 1e-4 x max(1, |beta|) and GLM CV
     metrics within 1e-4.
+
+Between phases the K/V store is cleared (``h2o.remove_all()``): what a
+phase keeps, it returns. Scratch files (CSVs, model files, snapshot and
+recovery directories) go to the git-ignored ``.chip_smoke/`` and are
+removed after each phase.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
@@ -187,6 +221,9 @@ OPTIONS_ROWS = 250_000         # gbm_options_card_vs_cpu: HIGGS rows
 XGB_CPU_ROWS = 1_000_000       # xgboost_card_vs_cpu: HIGGS rows
 IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
 IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
+SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
+RECOVERY_ROWS = 1_000_000      # recovery_card_vs_cpu: HIGGS rows
+RECOVERY_DRF_TREES = 50        # recovery_drf: drf_train's trees
 #: what H2O's airlines demos pass to import_file
 IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
                     "DayOfWeek": "enum"}
@@ -507,9 +544,9 @@ def phase_kernel(dev) -> dict:
                             **tree_sums(per_level)))
 
 
-def phase_train(dev, fr) -> int:
+def phase_train(dev, fr):
     """The flagship GBM end to end on the HIGGS frame; returns the kernel
-    launches it made."""
+    launches it made and the model."""
     import torch
 
     from h2o_tpu_torch.backend.kernels import gram, hist
@@ -537,7 +574,7 @@ def phase_train(dev, fr) -> int:
            f"{launches} flat and {grouped} grouped launches, want 50 and 0")
     _check(bool(np.isfinite(m.auc)) and m.auc > 0.6, f"AUC {m.auc}")
     _check(finite and p1.shape == (HIGGS_ROWS,), "predictions not finite")
-    return launches
+    return launches, model
 
 
 def _xgboost(fr, **kw):
@@ -1786,6 +1823,365 @@ def phase_import_cv_card_vs_cpu(dev) -> None:
                                        f"{glm_cv_err}")
 
 
+def _forests_bit_equal(a, b) -> bool:
+    import torch
+
+    return set(a.forest) == set(b.forest) and all(
+        torch.equal(a.forest[k], b.forest[k]) for k in a.forest)
+
+
+def phase_compress_airlines(dev, fr) -> int:
+    """The chunk codecs on the imported airlines frame: each column's
+    codec, its coded bytes against raw float32 and a bit-equal decode on
+    the card; the batched code-space rollups against the raw rollups; and a
+    5-tree GBM at ``bench_airlines`` settings on the coded frame against
+    one on the raw frame (bit-equal forests). Returns the coded frame's
+    grouped launches."""
+    import torch
+
+    from h2o_tpu_torch import compress_frame
+    from h2o_tpu_torch.backend.kernels import gram, hist
+    from h2o_tpu_torch.frame.chunks import CodedVec
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfr = compress_frame(fr)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    cols, coded_b, raw_b = {}, 0, 0
+    for name in fr.names:
+        v, cv = fr.vec(name), cfr.vec(name)
+        raw = v.plen * 4
+        nbytes = cv.coded_nbytes() if isinstance(cv, CodedVec) else raw
+        _check(torch.equal(cv.data.view(torch.int32),
+                           v.data.view(torch.int32)),
+               f"compress_airlines: {name} does not decode bit for bit")
+        cols[name] = dict(kind=cv.meta.kind if isinstance(cv, CodedVec)
+                          else "raw", coded_bytes=nbytes, raw_bytes=raw)
+        coded_b += nbytes
+        raw_b += raw
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfr.ensure_rollups()
+    rollup_s = time.perf_counter() - t0
+    roll_err = 0.0
+    for name in fr.names:
+        r, rc = fr.vec(name).rollups(), cfr.vec(name).rollups()
+        _check((rc.nacnt, rc.zerocnt, rc.mins, rc.maxs, rc.is_int)
+               == (r.nacnt, r.zerocnt, r.mins, r.maxs, r.is_int),
+               f"compress_airlines: {name} rollups {rc} against raw {r}")
+        for a, b in ((rc.mean, r.mean), (rc.sigma, r.sigma)):
+            roll_err = max(roll_err, abs(a - b) / max(abs(b), 1e-30))
+    _check(roll_err <= 1e-4, f"compress_airlines: mean/sigma off by a "
+                             f"relative {roll_err}")
+    kw = dict(response_column="IsDepDelayed", ntrees=5, max_depth=5,
+              nbins=20, nbins_cats=1024, learn_rate=0.1, seed=42)
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    raw_model = GBM(GBMParameters(training_frame=fr, **kw)).train_model()
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coded_model = GBM(GBMParameters(training_frame=cfr, **kw)).train_model()
+    coded_s = time.perf_counter() - t0
+    launches, flat = hist.GROUPED_LAUNCHES, hist.LAUNCHES
+    print("compress_airlines", json.dumps(dict(
+        rows=fr.nrow, compress_s=compress_s, rollup_s=rollup_s,
+        coded_bytes=coded_b, raw_f32_bytes=raw_b, ratio=coded_b / raw_b,
+        rollup_max_rel_err=roll_err, columns=cols,
+        gbm_on_coded_s=coded_s, grouped_launches=launches,
+        flat_launches=flat,
+        raw_gbm_s=raw_model.output.run_time_ms / 1000,
+        auc=coded_model.output.training_metrics.auc)), flush=True)
+    _check(_forests_bit_equal(coded_model, raw_model),
+           "compress_airlines: the forest on the coded frame differs")
+    _check(launches == 5 * 5 and flat == 0 and gram.GRAM_LAUNCHES == 0,
+           f"compress_airlines: {launches} grouped, {flat} flat launches")
+    return launches
+
+
+def phase_checkpoint_higgs(dev, fr, full) -> int:
+    """Checkpoint continuation, snapshots and model files on the HIGGS
+    frame: 5 trees, then ``checkpoint=`` that model's key to 10 trees
+    against the ``train`` phase's 10-tree model ``full``; a 10-tree run
+    with ``export_checkpoints_dir`` every 2 trees; the continuation saved
+    and scored by a fresh process on the card. Returns the continuation's
+    flat launches."""
+    import shutil
+
+    import torch
+
+    from h2o_tpu_torch import (GBM, GBMParameters, load_model, save_frame)
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    kw = dict(training_frame=fr, response_column="response", max_depth=5,
+              nbins=20, nbins_cats=1024, learn_rate=0.1, seed=42)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    prior = GBM(GBMParameters(ntrees=5, **kw)).train_model()
+    prior_launches = hist.LAUNCHES
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont = GBM(GBMParameters(ntrees=10, checkpoint=prior.key, **kw)
+               ).train_model()
+    cont_s = time.perf_counter() - t0
+    launches, other = hist.LAUNCHES, hist.GROUPED_LAUNCHES
+    rows = fr.nrow
+    p_full = full.predict(fr).vec("ps").data[:rows]
+    p_cont = cont.predict(fr).vec("ps").data[:rows]
+    pred_err = float((p_cont - p_full).abs().max())
+    val_err = float((cont.forest["val"] - full.forest["val"]).abs().max())
+    for k in ("feat", "nanL", "thr"):
+        _check(torch.equal(cont.forest[k], full.forest[k]),
+               f"checkpoint_higgs: {k} differs from the 10-tree run")
+    _check(pred_err <= CPU_TOL and val_err <= CPU_TOL,
+           f"checkpoint_higgs: leaves off by {val_err}, predictions by "
+           f"{pred_err}")
+    _check(launches == 25 and other == 0 and prior_launches == 25,
+           f"checkpoint_higgs: {launches} flat and {other} grouped launches "
+           f"for the continuation, {prior_launches} for the prior")
+    snaps = os.path.join(DATA_DIR, "higgs_snapshots")
+    shutil.rmtree(snaps, ignore_errors=True)
+    os.makedirs(DATA_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        exp = GBM(GBMParameters(ntrees=10, score_tree_interval=2,
+                                export_checkpoints_dir=snaps, **kw)
+                  ).train_model()
+        export_s = time.perf_counter() - t0
+        _check(_forests_bit_equal(exp, full),
+               "checkpoint_higgs: the exporting run's forest differs from "
+               "the train phase's")
+        names = sorted(os.listdir(snaps))
+        _check(names == [f"gbm_{n:05d}.bin" for n in (2, 4, 6, 8, 10)],
+               f"checkpoint_higgs: snapshots {names}")
+        sl = fr.take(np.arange(min(SLICE_ROWS, rows)))
+        for i, name in enumerate(names):
+            snap = load_model(os.path.join(snaps, name), device=dev)
+            _check(snap.ntrees == 2 * (i + 1), f"{name}: {snap.ntrees} trees")
+            ps = snap.predict(sl).vec("ps").data
+            _check(bool(torch.isfinite(ps).all()), f"{name}: scores")
+        _check(torch.equal(ps, exp.predict(sl).vec("ps").data),
+               "checkpoint_higgs: the last snapshot scores differently")
+        # the continuation's file, scored by a fresh process on the card
+        mpath = os.path.join(DATA_DIR, "higgs_cont.bin")
+        t0 = time.perf_counter()
+        cont.save(mpath)
+        save_s = time.perf_counter() - t0
+        save_frame(sl, os.path.join(DATA_DIR, "higgs_slice"))
+        code = ("import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
+                "from h2o_tpu_torch import load_frame, load_model; "
+                "d, dev = sys.argv[2], sys.argv[3]; "
+                "m = load_model(d + '/higgs_cont.bin', device=dev); "
+                "fr = load_frame(d + '/higgs_slice.npz', device=dev); "
+                "np.save(d + '/higgs_slice_p.npy', "
+                "m.predict(fr).vec('ps').data[:fr.nrow].cpu().numpy())")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code,
+             os.path.dirname(os.path.abspath(__file__)), DATA_DIR, str(dev)],
+            capture_output=True, text=True, timeout=300)
+        fresh_s = time.perf_counter() - t0
+        _check(proc.returncode == 0,
+               f"checkpoint_higgs: fresh process failed\n{proc.stderr}")
+        child = np.load(os.path.join(DATA_DIR, "higgs_slice_p.npy"))
+        mine = cont.predict(sl).vec("ps").data[:sl.nrow].cpu().numpy()
+        _check(child.tobytes() == mine.tobytes(),
+               "checkpoint_higgs: the fresh process scores differently")
+        model_mb = os.path.getsize(mpath) / 1e6
+    finally:
+        shutil.rmtree(snaps, ignore_errors=True)
+        for f in ("higgs_cont.bin", "higgs_slice.npz", "higgs_slice.json",
+                  "higgs_slice_p.npy"):
+            if os.path.exists(os.path.join(DATA_DIR, f)):
+                os.remove(os.path.join(DATA_DIR, f))
+    print("checkpoint_higgs", json.dumps(dict(
+        rows=rows, prior_trees=5, ntrees=10, continuation_s=cont_s,
+        continuation_launches=launches, leaf_max_abs_err=val_err,
+        pred_max_abs_err=pred_err, export_run_s=export_s, snapshots=names,
+        model_file_mb=model_mb, model_save_s=save_s,
+        fresh_process_s=fresh_s, fresh_rows=len(child))), flush=True)
+    return launches
+
+
+class _LastOOB:
+    """Records the out-of-bag sums and counts of the last
+    ``gbm._oob_metrics`` call while the context is open."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import gbm
+
+        self.orig, self.last = gbm._oob_metrics, None
+
+        def spy(category, osum, ocnt, *a, **kw):
+            self.last = (osum.clone(), ocnt.clone())
+            return self.orig(category, osum, ocnt, *a, **kw)
+        gbm._oob_metrics = spy
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import gbm
+
+        gbm._oob_metrics = self.orig
+
+
+def phase_recovery_drf(dev, fr, wrapper: str) -> int:
+    """The covertype DRF at the ``drf_train`` settings with
+    ``score_tree_interval=10`` and ``auto_recovery_dir``, killed before
+    its third chunk (``train.gbm.chunk:raise(preempt)@3``) and resumed:
+    forest, out-of-bag sums and counts and class probabilities bit-equal to
+    an uninterrupted run at the same parameters. Returns the launches of
+    the plan's wrapper in the killed run and the resume together."""
+    import shutil
+
+    import torch
+
+    from h2o_tpu_torch import DRF, DRFParameters, resume_training
+    from h2o_tpu_torch.backend import persist
+    from h2o_tpu_torch.backend.kernels import gram, hist
+    from h2o_tpu_torch.utils import failpoints
+
+    def params(**kw):
+        return DRFParameters(training_frame=fr, response_column="Cover_Type",
+                             ntrees=RECOVERY_DRF_TREES, seed=42,
+                             score_tree_interval=10, **kw)
+
+    def counted():
+        return hist.GROUPED_LAUNCHES if wrapper == "grouped" \
+            else hist.LAUNCHES
+
+    rdir = os.path.join(DATA_DIR, "recovery_drf")
+    shutil.rmtree(rdir, ignore_errors=True)
+    old = os.environ.get("H2O_TORCH_CHECKPOINT_SECS")
+    os.environ["H2O_TORCH_CHECKPOINT_SECS"] = "0"   # every boundary
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _LastOOB() as oob_base:
+            base = DRF(params()).train_model()
+        base_s = time.perf_counter() - t0
+        hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+        failpoints.arm("train.gbm.chunk", "raise(preempt)@3")
+        t0 = time.perf_counter()
+        with _Walls(persist, "save_frame", dev) as frame_saves, \
+                _Walls(persist.TrainingRecovery, "save_state",
+                       dev) as writes:
+            try:
+                DRF(params(auto_recovery_dir=rdir)).train_model()
+                _check(False, "recovery_drf: the kill did not fire")
+            except failpoints.InjectedPreemption:
+                pass
+            killed_s = time.perf_counter() - t0
+            failpoints.reset()
+            killed_writes = len(writes.s)
+            killed_launches = counted()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _LastOOB() as oob_res:
+                res = resume_training(rdir, device=dev)
+            resume_s = time.perf_counter() - t0
+        launches = counted()
+        manifest = persist.Recovery(rdir).read()
+    finally:
+        failpoints.reset()
+        shutil.rmtree(rdir, ignore_errors=True)
+        if old is None:
+            os.environ.pop("H2O_TORCH_CHECKPOINT_SECS", None)
+        else:
+            os.environ["H2O_TORCH_CHECKPOINT_SECS"] = old
+    pb, pr = _class_probs(base, fr), _class_probs(res, fr)
+    frame_mb = sum(v.plen * 4 for v in fr.vecs) / 1e6
+    print("recovery_drf", json.dumps(dict(
+        rows=fr.nrow, ntrees=RECOVERY_DRF_TREES, interval=10,
+        killed_at_chunk=3,
+        uninterrupted_s=base_s, killed_run_s=killed_s, resume_s=resume_s,
+        frame_save_s=frame_saves.s, frame_f32_mb=frame_mb,
+        frame_save_mb_per_s=frame_mb / max(sum(frame_saves.s), 1e-9),
+        state_writes=len(writes.s), state_writes_killed_run=killed_writes,
+        write_s=sum(writes.s), killed_launches=killed_launches,
+        launches=launches, manifest_checkpoints=manifest["checkpoints"],
+        completed=manifest["completed"],
+        description=res.output.training_metrics.description)), flush=True)
+    _check(_forests_bit_equal(res, base),
+           "recovery_drf: the resumed forest differs")
+    _check(torch.equal(oob_res.last[0], oob_base.last[0])
+           and torch.equal(oob_res.last[1], oob_base.last[1]),
+           "recovery_drf: OOB sums or counts differ")
+    _check(torch.equal(pr, pb), "recovery_drf: class probabilities differ")
+    chunks = RECOVERY_DRF_TREES // 10
+    _check(manifest["completed"] and killed_writes == 2
+           and len(writes.s) == chunks,
+           f"recovery_drf: {len(writes.s)} state writes "
+           f"({killed_writes} before the kill), manifest {manifest}")
+    _check(launches == RECOVERY_DRF_TREES * 7 * 12
+           and killed_launches == 20 * 7 * 12,
+           f"recovery_drf: {launches} launches ({killed_launches} before "
+           f"the kill), want {RECOVERY_DRF_TREES * 7 * 12} (1680)")
+    return launches
+
+
+def phase_recovery_card_vs_cpu(dev) -> None:
+    """The GBM kill drill at every boundary on 1M HIGGS rows (6 trees,
+    ``score_tree_interval=2``: 3 kills) on the card: each resumed forest
+    and its predictions bit-equal to the card's uninterrupted run; that
+    forest against the CPU's within the ``card_vs_cpu`` tolerances."""
+    import shutil
+
+    import torch
+
+    from h2o_tpu_torch import GBM, GBMParameters, resume_training
+    from h2o_tpu_torch.utils import failpoints
+
+    rows = RECOVERY_ROWS
+
+    def params(fr, **kw):
+        return GBMParameters(training_frame=fr, response_column="response",
+                             ntrees=6, max_depth=5, nbins=20, learn_rate=0.1,
+                             score_tree_interval=2, seed=42, **kw)
+
+    fr = _higgs_frame(rows, dev)
+    base = GBM(params(fr)).train_model()
+    p_base = base.predict(fr).vec("ps").data[:rows]
+    old = os.environ.get("H2O_TORCH_CHECKPOINT_SECS")
+    os.environ["H2O_TORCH_CHECKPOINT_SECS"] = "0"
+    walls = []
+    try:
+        for k in (1, 2, 3):
+            rdir = os.path.join(DATA_DIR, f"recovery_gbm_k{k}")
+            shutil.rmtree(rdir, ignore_errors=True)
+            failpoints.arm("train.gbm.chunk", f"raise(preempt)@{k}")
+            try:
+                GBM(params(fr, auto_recovery_dir=rdir)).train_model()
+                _check(False, f"recovery_card_vs_cpu: kill {k} did not fire")
+            except failpoints.InjectedPreemption:
+                pass
+            failpoints.reset()
+            t0 = time.perf_counter()
+            m = resume_training(rdir, device=dev)
+            walls.append(time.perf_counter() - t0)
+            shutil.rmtree(rdir, ignore_errors=True)
+            _check(_forests_bit_equal(m, base),
+                   f"recovery_card_vs_cpu: forest differs after kill {k}")
+            _check(torch.equal(m.predict(fr).vec("ps").data[:rows], p_base),
+                   f"recovery_card_vs_cpu: predictions differ after kill {k}")
+    finally:
+        failpoints.reset()
+        if old is None:
+            os.environ.pop("H2O_TORCH_CHECKPOINT_SECS", None)
+        else:
+            os.environ["H2O_TORCH_CHECKPOINT_SECS"] = old
+    cfr = _higgs_frame(rows, "cpu")
+    cpu = GBM(params(cfr)).train_model()
+    cmp = _same_forest(base, cpu, "recovery_card_vs_cpu")
+    pred_err = float((p_base.cpu() - cpu.predict(cfr).vec("ps").data[:rows]
+                      ).abs().max())
+    _check(pred_err <= CPU_TOL,
+           f"recovery_card_vs_cpu: predictions off by {pred_err}")
+    print("recovery_card_vs_cpu", json.dumps(dict(
+        rows=rows, ntrees=6, interval=2, kills=3, resume_s=walls,
+        pred_max_abs_err=pred_err, **cmp)), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1816,12 +2212,16 @@ def main() -> int:
     print(f"csv tokenizer build: {time.perf_counter() - t0:.3f} s",
           flush=True)
 
+    from h2o_tpu_torch import STORE
+
     phases = {}
 
     def run(name, fn):
         t0 = time.perf_counter()
         out = fn(dev)
         phases[name] = time.perf_counter() - t0
+        # h2o.remove_all() between phases: what a phase keeps, it returns
+        STORE.clear()
         return out
 
     t0 = time.perf_counter()
@@ -1829,7 +2229,10 @@ def main() -> int:
     print(f"higgs frame {HIGGS_ROWS}x{HIGGS_F}: "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     flat = run("level_hist", phase_kernel)
-    launches = run("train", lambda d: phase_train(d, higgs))
+    launches, higgs_model = run("train", lambda d: phase_train(d, higgs))
+    ckpt_launches = run("checkpoint_higgs", lambda d: phase_checkpoint_higgs(
+        d, higgs, higgs_model))
+    del higgs_model
     xgb_launches = run("xgboost_train",
                        lambda d: phase_xgboost_train(d, higgs))
     run("card_vs_cpu", phase_card_vs_cpu)
@@ -1854,11 +2257,16 @@ def main() -> int:
         d, cov, 50, False, "drf_train", covtype["wrapper"]))
     xrt_launches = run("xrt_train", lambda d: phase_drf_train(
         d, cov, 10, True, "xrt_train", covtype["wrapper"]))
+    rec_launches = run("recovery_drf", lambda d: phase_recovery_drf(
+        d, cov, covtype["wrapper"]))
     del cov
     run("drf_card_vs_cpu", phase_drf_card_vs_cpu)
+    run("recovery_card_vs_cpu", phase_recovery_card_vs_cpu)
     from h2o_tpu_torch import split_frame
 
     imported, _parse = run("import_csv", phase_import_csv)
+    cmp_launches = run("compress_airlines",
+                       lambda d: phase_compress_airlines(d, imported))
     train, valid, calib = split_frame(imported, ratios=[0.7, 0.15], seed=42)
     del imported
     cv_gbm_launches, hist_at_path = run(
@@ -1874,14 +2282,17 @@ def main() -> int:
     levels = covtype["per_level"]
     cov_nums = dict(
         n_lv=[r["n_lv"] for r in levels],
-        launches_by_path=dict(drf_train=drf_launches, xrt_train=xrt_launches),
+        launches_by_path=dict(drf_train=drf_launches, xrt_train=xrt_launches,
+                              recovery_drf=rec_launches),
         max_abs_err=max(r["max_abs_err"] for r in levels),
         **{k: sum(r[k] for r in levels)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         per_level_ms=[r["ms"] for r in levels], bound_by="bytes")
-    paths = {"level_hist": dict(train=launches, xgboost_train=xgb_launches),
+    paths = {"level_hist": dict(train=launches, xgboost_train=xgb_launches,
+                                checkpoint_higgs=ckpt_launches),
              "level_hist_grouped": dict(airlines_train=grouped_launches,
-                                        import_cv_gbm=cv_gbm_launches),
+                                        import_cv_gbm=cv_gbm_launches,
+                                        compress_airlines=cmp_launches),
              "gram": dict(glm_train=gram_launches,
                           xgboost_gblinear=gblinear_launches,
                           import_cv_glm=cv_glm_launches)}

@@ -26,12 +26,23 @@ design expansion (``models/datainfo.py``) and the IRLS loop over the weighted
 Gram kernel (``backend/kernels/gram.py``, CUDA C++ in ``csrc/gram.cu``), the
 small solves on the host.
 
+State that outlives a training process: the K/V store (``STORE``) that
+models and frames register in, jobs on worker threads
+(``ModelBuilder.train()``), the chunk codecs (``compress_frame``,
+``Frame.compress``), frame and model files (``save_frame``/``load_frame``,
+``save_model``/``load_model``, ``Model.save``), checkpoint continuation
+(``checkpoint=``), in-training snapshots (``export_checkpoints_dir``) and
+auto-recovery checkpoints resumed bit-equal by ``resume_training``.
+
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for ``cuda`` on a machine without a GPU raises.
 Kernel wrappers dispatch on the tensor's device: the plain PyTorch version
 for a CPU tensor, the hand-written kernel for a CUDA tensor.
 """
 
+from .backend.kvstore import STORE
+from .backend.persist import load_frame, load_model, save_frame, save_model
+from .frame.chunks import compress_frame
 from .frame.frame import Frame
 from .frame.split import split_frame
 from .frame.vec import Vec
@@ -40,9 +51,12 @@ from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
                          XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.glm import GLM, GLMModel, GLMParameters
+from .models.model_base import resume_training
 from .models.xgboost import XGBoost, XGBoostParameters
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "GBM", "GBMModel", "GBMParameters", "DRF", "DRFModel",
            "DRFParameters", "XRT", "XRTParameters", "GLM", "GLMModel",
-           "GLMParameters", "XGBoost", "XGBoostParameters"]
+           "GLMParameters", "XGBoost", "XGBoostParameters", "STORE",
+           "compress_frame", "save_frame", "load_frame", "save_model",
+           "load_model", "resume_training"]

@@ -6,10 +6,12 @@ stacks a model's columns into its dense (plen, ncol) float32 matrix.
 ``take`` and ``concat_rows`` are the row operations behind ``split_frame``
 and cross-validation's fold frames: device columns are gathered or joined
 on the device, string columns (and columns with an exact host copy) on the
-host, as the reference does for every column. ``destination_frame`` is kept
-as ``key``; the port has no K/V store yet (ROADMAP Queue 1 step G). The
-chunk codecs (``Frame.compress``) are not ported (ROADMAP Queue 1 item 3),
-nor ``from_pandas``/``to_pandas`` (the card's machine has no pandas).
+host, as the reference does for every column. A Frame is ``Keyed``:
+``destination_frame`` names it, else it takes a generated key; parsed,
+loaded and compressed frames are registered in the K/V store, as the
+reference registers them. ``compress`` codes the columns
+(``frame/chunks.py``). ``from_pandas``/``to_pandas`` are not ported (the
+card's machine has no pandas).
 """
 
 from __future__ import annotations
@@ -19,16 +21,17 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from ..backend.kvstore import Keyed
 from ..parallel.mesh import padded_len, resolve_device
 from .vec import Vec
 
 
-class Frame:
+class Frame(Keyed):
     def __init__(self, names: Sequence[str] | None = None,
                  vecs: Sequence[Vec] | None = None, key: str | None = None):
+        super().__init__(key=key, prefix="frame")
         self._names: list[str] = list(names or [])
         self._vecs: list[Vec] = list(vecs or [])
-        self.key = key
         if len(self._names) != len(self._vecs):
             raise ValueError("one name per column")
         for v in self._vecs[1:]:
@@ -51,8 +54,8 @@ class Frame:
         if vec.nrow != first.nrow:
             raise ValueError(f"column has {vec.nrow} rows, frame has "
                              f"{first.nrow}")
-        ref = next((v for v in self._vecs if v.data is not None), None)
-        if ref is None or vec.data is None or ref is vec:
+        ref = next((v for v in self._vecs if v.device is not None), None)
+        if ref is None or vec.device is None or ref is vec:
             return
         if vec.plen != ref.plen:
             raise ValueError(f"column padded to {vec.plen} rows, frame to "
@@ -65,7 +68,7 @@ class Frame:
     def device(self) -> torch.device | None:
         """The device of the frame's device columns (None when every
         column is a host string column)."""
-        return next((v.device for v in self._vecs if v.data is not None),
+        return next((v.device for v in self._vecs if v.device is not None),
                     None)
 
     @property
@@ -103,11 +106,19 @@ class Frame:
         return dict(zip(self._names, (v.type for v in self._vecs)))
 
     def ensure_rollups(self, names: Sequence[str] | None = None) -> None:
-        """Compute every missing column rollup. The reference batches them
-        into fused multi-column passes over its mesh; on one device each
-        column's one pass is filled in turn (the values are the same)."""
-        for n in (names if names is not None else self._names):
-            self.vec(n).rollups()
+        """Compute every missing column rollup: coded columns in code space,
+        batched per code width (``chunks.batch_code_rollups``), the others
+        one pass each. The reference batches the plain columns into fused
+        multi-column passes over its mesh; the values are the same."""
+        from .chunks import CodedVec, batch_code_rollups
+
+        todo = [self.vec(n) for n in (names if names is not None
+                                      else self._names)]
+        rest = set(map(id, batch_code_rollups(
+            [v for v in todo if isinstance(v, CodedVec)])))
+        for v in todo:
+            if not isinstance(v, CodedVec) or id(v) in rest:
+                v.rollups()
 
     def add(self, name: str, vec: Vec) -> "Frame":
         if self._vecs:
@@ -180,9 +191,12 @@ class Frame:
         return Frame(self.names, vecs)
 
     def compress(self) -> "Frame":
-        raise NotImplementedError(
-            "the chunk codecs (CodedVec, compress_frame) are not ported yet "
-            "(ROADMAP Queue 1 item 3)")
+        """Compressed copy of this frame: every column re-encoded with the
+        narrowest bit-exact codec (``frame/chunks.py``); columns no codec
+        reproduces stay plain (shared, not copied)."""
+        from .chunks import compress_frame
+
+        return compress_frame(self)
 
     def __repr__(self) -> str:
         key = f"{self.key}, " if self.key else ""

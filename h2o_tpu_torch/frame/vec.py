@@ -43,6 +43,8 @@ class Rollups:
     sigma: float
     nacnt: int
     nrow: int
+    zerocnt: int = 0
+    is_int: bool = False
 
 
 def _rollups(data: torch.Tensor, nrow: int) -> Rollups:
@@ -58,7 +60,8 @@ def _rollups(data: torch.Tensor, nrow: int) -> Rollups:
         mins=float(torch.where(ok, data, torch.inf).min()),
         maxs=float(torch.where(ok, data, -torch.inf).max()),
         mean=float(mean), sigma=float(np.sqrt(max(var, 0.0))),
-        nacnt=nrow - n, nrow=nrow)
+        nacnt=nrow - n, nrow=nrow, zerocnt=int((ok & (data == 0.0)).sum()),
+        is_int=bool(torch.where(ok, data == torch.floor(data), True).all()))
 
 
 class Vec:

@@ -5,10 +5,13 @@ through Arrow dictionaries. The card's machine has no pyarrow, so the port
 tokenizes itself, on the host as the reference does, and decides each
 column by the reference's rules (``_read_csv``/``_table_to_frame``):
 
-- type inference in pyarrow's order: null, int64, boolean, date and
-  timestamp, float64, string. An all-NA column is numeric; an integral
-  float column reports ``int``; booleans become ``int`` 0/1; timestamps
-  become milliseconds since the epoch. Numbers may carry spaces around them.
+- type inference in pyarrow's order: null, int64 (decimal digits inside
+  int64's range, or ``0x`` and up to 16 hex digits), boolean, date and
+  timestamp, time of day, float64, string. An all-NA column is numeric;
+  an integral float column reports ``int``; booleans become ``int`` 0/1;
+  timestamps become milliseconds since the epoch; a time-of-day column
+  (``HH:MM[:SS]``) is a string column of ``datetime.time`` host values.
+  Numbers may carry spaces around them.
 - the NA asymmetry: the NA spellings (the defaults, or the user's list
   plus "") nullify numeric cells; string and enum columns keep them as
   levels ("NA" is a level, a bare empty field the level "") unless the user
@@ -36,6 +39,7 @@ Queue 1 item 3).
 from __future__ import annotations
 
 import ctypes
+import datetime
 import gzip
 import hashlib
 import os
@@ -49,10 +53,11 @@ from typing import Sequence
 import numpy as np
 
 from ..backend.kernels import BUILD_DIR, CSRC_DIR
+from ..backend.kvstore import STORE
 from ..frame.frame import Frame
 from ..frame.vec import T_CAT, T_INT, T_NUM, T_STR, T_TIME, Vec
 from ..parallel.mesh import resolve_device
-from ..utils import knobs
+from ..utils import failpoints, knobs
 
 #: NA spellings — the reference's `water/parser/ParseSetup` vocabulary
 DEFAULT_NA_STRINGS = ["", "NA", "N/A", "na", "NaN", "nan", "null", "NULL",
@@ -67,6 +72,7 @@ _FALSE = (b"0", b"False", b"FALSE", b"false")
 _FLOAT_WORDS = re.compile(rb"[+-]?(inf|infinity|nan)", re.IGNORECASE)
 _ISO_TIME = re.compile(
     rb"\d{4}-\d{2}-\d{2}([ T]\d{2}(:\d{2}(:\d{2}(\.\d{1,9})?)?)?)?Z?")
+_TIME_OF_DAY = re.compile(rb"(\d{2}):(\d{2})(?::(\d{2}))?")
 
 
 class ParseSetup:
@@ -249,6 +255,10 @@ def _table(chars: bytes, nul: bool = True) -> np.ndarray:
 
 
 _DIGITS = _table(b"0123456789")
+#: each byte's hex digit value, -1 for a byte that is not one
+_HEX_VALUE = np.full(256, -1, dtype=np.int64)
+for _c in b"0123456789abcdefABCDEF":
+    _HEX_VALUE[_c] = int(chr(_c), 16)
 _FLOAT_CHARS = _table(b"0123456789+-.eE")
 
 
@@ -276,23 +286,80 @@ def _strip_spaces(s: np.ndarray) -> np.ndarray:
 
 
 def _as_int64(s: np.ndarray):
-    """int64 values when every field is ``-``? and 1..18 digits, else
-    None (wider integers go to float64)."""
+    """int64 values when every field is an int64 in pyarrow's syntax, else
+    None (wider integers go to float64): ``-``? and decimal digits (leading
+    zeros free) inside int64's range, or ``0x``/``0X`` and 1..16 hex
+    digits, whose 64 bits are the value."""
     if not len(s):
         return None
     m = _byte_matrix(s)
-    W = m.shape[1]
+    hexr = ((m[:, 0] == 48) & ((m[:, 1] | 32) == 120) if m.shape[1] > 1
+            else np.zeros(len(s), dtype=bool))
+    out = np.empty(len(s), dtype=np.int64)
+    for rows, parse in ((hexr, _hex_int64), (~hexr, _dec_int64)):
+        if rows.any():
+            v = parse(m[rows])
+            if v is None:
+                return None
+            out[rows] = v
+    return out
+
+
+def _dec_int64(m: np.ndarray):
     neg = m[:, 0] == 45
     if not (_DIGITS[m[:, 0]] | neg).all() or not _DIGITS[m[:, 1:]].all():
         return None
-    nd = (m != 0).sum(axis=1) - neg
-    if (nd < 1).any() or (nd > 18).any():
+    d = m.astype(np.int64) - 48
+    digit = (d >= 0) & (d <= 9)
+    if (digit.sum(axis=1) < 1).any():
         return None
-    acc = np.zeros(len(s), dtype=np.int64)
-    for c in range(W):
-        d = m[:, c].astype(np.int64) - 48
-        acc = np.where((d >= 0) & (d <= 9), acc * 10 + d, acc)
-    return np.where(neg, -acc, acc)
+    # significant digits: those from the first nonzero one on
+    sig = digit & (np.cumsum(digit & (d > 0), axis=1) > 0)
+    if (sig.sum(axis=1) > 19).any():
+        return None
+    acc = np.zeros(len(m), dtype=np.uint64)
+    for c in range(m.shape[1]):
+        acc = np.where(digit[:, c], acc * np.uint64(10)
+                       + d[:, c].astype(np.uint64), acc)
+    if (acc > np.uint64(2 ** 63 - 1) + neg.astype(np.uint64)).any():
+        return None
+    v = acc.view(np.int64)      # -2^63 stays -2^63 under the negation
+    return np.where(neg, -v, v)
+
+
+def _hex_int64(m: np.ndarray):
+    h = m[:, 2:]
+    ok = _HEX_VALUE[h] >= 0
+    nd = ok.sum(axis=1)
+    if not (ok | (h == 0)).all() or (nd < 1).any() or (nd > 16).any():
+        return None
+    acc = np.zeros(len(m), dtype=np.uint64)
+    for c in range(h.shape[1]):
+        acc = np.where(ok[:, c], acc * np.uint64(16)
+                       + _HEX_VALUE[h[:, c]].astype(np.uint64), acc)
+    return acc.view(np.int64)
+
+
+def _as_time_of_day(s: np.ndarray):
+    """``HH:MM`` or ``HH:MM:SS`` fields (two digits each, 00-23, 00-59,
+    00-59: pyarrow's time32[s]) -> an object array of ``datetime.time``,
+    or None."""
+    if not len(s):
+        return None
+    m = _byte_matrix(s)
+    if m.shape[1] < 5 or not (m[:, 2] == 58).all():
+        return None
+    uniq, inv = np.unique(s, return_inverse=True)
+    times = []
+    for t in uniq:
+        hit = _TIME_OF_DAY.fullmatch(bytes(t))
+        if hit is None:
+            return None
+        h, mi, sec = (int(g or 0) for g in hit.groups())
+        if h > 23 or mi > 59 or sec > 59:
+            return None
+        times.append(datetime.time(h, mi, sec))
+    return np.array(times, dtype=object)[inv.ravel()]
 
 
 def _as_float64(s: np.ndarray):
@@ -413,6 +480,12 @@ def _convert(s: np.ndarray, name: str, want, setup: ParseSetup,
     if want == T_TIME:
         raise ValueError(f"column '{name}' is typed time but holds a value "
                          "that is not an ISO date or timestamp")
+    tod = _as_time_of_day(vals)
+    if tod is not None:
+        # pyarrow's time32 column: the reference keeps its host values
+        host = np.full(n, None, dtype=object)
+        host[~null] = tod
+        return Vec(None, n, type=T_STR, host_data=host)
     f = _as_float64(vals)
     if f is not None:
         arr = with_nulls(f)
@@ -427,6 +500,7 @@ def parse_file(path: str, setup: ParseSetup | None = None,
                dest_key: str | None = None, device=None) -> Frame:
     """Parse one CSV/TSV file into a Frame on ``device`` (default
     ``cuda``), the role of ``ParseDataset.parse``."""
+    failpoints.hit("parser.parse")
     _refuse_format(path)
     dev = resolve_device(device)
     setup = guess_setup(path, setup)
@@ -455,7 +529,7 @@ def parse_file(path: str, setup: ParseSetup | None = None,
         vecs.append(_convert(s, nm, setup.column_types.get(nm), setup,
                              nulls, dev))
         out_names.append(nm)
-    return Frame(out_names, vecs, key=dest_key)
+    return STORE.put_keyed(Frame(out_names, vecs, key=dest_key))
 
 
 def import_file(path: str, destination_frame: str | None = None,

@@ -14,13 +14,28 @@ multinomial, zeros for DRF), the tree keys ``split(PRNGKey(seed), ntrees)``
 (seed -1 -> 1234), then the chunk loop over ``score_tree_interval`` — each
 chunk grows its trees on the device (`engine.train_trees`) and scores once:
 the carried margin, or for a row-sampled DRF the out-of-bag outputs — and
-stops early when ``stopping_rounds`` scores show no gain.
+stops early when ``stopping_rounds`` scores show no gain, or at a chunk
+boundary once ``max_runtime_secs`` has passed.
+
+Checkpoint continuation (``checkpoint=`` a model or its key,
+`hex/tree/SharedTree.java:146,243,470`): the prior's parameters are
+checked, its forest is replayed over the binned view in bin-code space
+(``GBMModel._raw_f_codes``: GBM splits sit on bin edges, so routing by
+codes is exact; a prior whose thresholds are off the current grid replays
+over the raw columns instead), and boosting continues with the tree keys
+and annealed rates of trees ``n_prior..ntrees``. A continued DRF reports
+in-bag metrics (the prior trees' bags are not known). At every chunk
+boundary a build may write a snapshot model to ``export_checkpoints_dir``
+and offers its exact carried state (margin, trees, OOB sums, history) to
+auto-recovery (``model_base._recovery_tick``); the ``train.gbm.chunk``
+failpoint sits at the top of each chunk.
 Options the port does not reproduce raise ``NotImplementedError`` naming the
 ROADMAP item.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 import types
@@ -33,7 +48,8 @@ from ..backend.memory import hbm_budget_bytes
 from ..frame.chunks import BinnedView
 from ..frame.vec import Vec
 from ..parallel.mesh import resolve_device
-from ..utils import threefry
+from ..utils import failpoints, threefry
+from ..utils.log import info
 from .distributions import (Bernoulli, Gaussian, Multinomial, _sigmoid,
                             get_distribution)
 from .metrics import make_metrics
@@ -81,8 +97,8 @@ class GBMModel(Model):
     algo_name = "gbm"
 
     def __init__(self, params, output, forest, f0, dist, cfg: TreeConfig,
-                 is_cat, edges=None, cat_nedges=None):
-        super().__init__(params, output)
+                 is_cat, edges=None, cat_nedges=None, key=None):
+        super().__init__(params, output, key=key)
         self.forest = forest    # feat/thr/nanL/val/gain (T,[K,]N), catd (...,B)
         self.f0 = f0            # float32 tensor: 0-d, or (K,) per class
         self.dist = dist
@@ -170,6 +186,35 @@ class GBMModel(Model):
         s = predict_forest(X, fo["feat"], fo["thr"], fo["nanL"], fo["val"],
                            self.cfg.max_depth, catd=catd, iscat=iscat,
                            nedges=nedges)
+        if self.cfg.drf_mode:
+            return self.f0 + s / max(self.ntrees, 1)
+        return self.f0 + s
+
+    #: rows of one code-space replay block: bounds the float32 copy of
+    #: the binned codes, never a whole (R, F) matrix
+    _CODE_SCORE_CELLS = 1 << 26
+
+    def _raw_f_codes(self, Xb, thr_codes: np.ndarray, na_code: int):
+        """The forest's ``_raw_f`` over the BINNED view, in bin-code space
+        — the checkpoint replay that never stacks the raw float32 matrix.
+        Codes are ``#edges < x``, so for a threshold that is an edge value
+        (GBM splits only at edges) ``x > thr <=> code(x) > #edges < thr``.
+        Per row block the codes become float32 with the NA code as NaN and
+        `predict_forest` runs with the code-space thresholds: every routing
+        decision, and so the sum, equals the raw traversal's."""
+        fo = self.forest
+        catd, iscat, nedges = self._set_args()
+        thr = torch.from_numpy(np.asarray(thr_codes, np.float32)).to(
+            Xb.device)
+        step = max(8192, self._CODE_SCORE_CELLS // max(Xb.shape[1], 1))
+        parts = []
+        for r0 in range(0, Xb.shape[0], step):
+            bi = Xb[r0:r0 + step].to(torch.int32)
+            xf = torch.where(bi == na_code, torch.nan, bi.to(torch.float32))
+            parts.append(predict_forest(
+                xf, fo["feat"], thr, fo["nanL"], fo["val"],
+                self.cfg.max_depth, catd=catd, iscat=iscat, nedges=nedges))
+        s = parts[0] if len(parts) == 1 else torch.cat(parts)
         if self.cfg.drf_mode:
             return self.f0 + s / max(self.ntrees, 1)
         return self.f0 + s
@@ -389,37 +434,79 @@ class GBM(ModelBuilder):
             mono=torch.from_numpy(mono_np).to(dev),
             imat=torch.from_numpy(imat_np).to(dev))
 
-    def build_impl(self) -> GBMModel:
+    def build_impl(self, job) -> GBMModel:
+        rs = self._take_resume_state()
+        # an auto-recovery resume carries the margin in its state: no
+        # replay of a prior at all
+        prior = None
+        if self.params.checkpoint is not None and rs is None:
+            prior = self._resolve_checkpoint(self.params.checkpoint)
         s = self._setup_build()
         p, fr, dist, cfg = self.params, self.params.training_frame, s.dist, s.cfg
+        K, f0, f = s.K, s.f0, s.f
+        dev = s.Xb.device
+        parts = []
+        if prior is not None:
+            p, cfg, f0, f = self._continue_from(prior, s)
+            parts = [tuple(prior.forest[k].to(dev) for k in _FOREST_KEYS)]
+        n_prior = prior.ntrees if prior is not None else 0
+        if rs is not None:
+            # the state carries what the prior block derived
+            n_prior = int(rs["n_prior"])
+            f0 = rs["f0"].to(dev)
+            if bool(rs["use_sets"]) != cfg.use_sets:
+                cfg = dataclasses.replace(cfg, use_sets=bool(rs["use_sets"]))
+        n_new = p.ntrees - n_prior
+        # keys and annealed rates are indexed by the global tree number, so
+        # a continuation or a resume draws the trees' own streams
+        keys = threefry.split(threefry.prng_key(_seed(p)), p.ntrees)[n_prior:]
         anneal = 1.0 if self.drf_mode else float(p.learn_rate_annealing or 1.0)
-        rates = torch.from_numpy(
-            (anneal ** np.arange(p.ntrees)).astype(np.float32)).to(fr.device)
-        keys = threefry.split(threefry.prng_key(_seed(p)), p.ntrees)
-        interval = min(p.score_tree_interval or p.ntrees, p.ntrees)
-        grad_fn = self._make_grad_fn(dist, s.K)
+        rates = torch.from_numpy((anneal ** np.arange(n_prior, p.ntrees)
+                                  ).astype(np.float32)).to(dev)
+        interval = min(p.score_tree_interval or n_new, n_new)
+        chunks = [(keys[i:i + interval], rates[i:i + interval])
+                  for i in range(0, n_new, interval)]
+        grad_fn = self._make_grad_fn(dist, K)
 
         output = ModelOutput()
         output.names = s.names
         output.domains = {n: fr.vec(n).domain for n in s.names}
         output.response_domain = list(s.resp_domain) if s.resp_domain else None
         output.model_category = s.category
-        f = s.f
-        parts, history, stop_series = [], [], []
+        history, stop_series = [], []
         oob_sum = oob_cnt = None
+        start_ci = 0
+        if rs is not None and rs.get("chunks_done"):
+            # the exact carried state: the remaining chunks see the inputs
+            # the uninterrupted run gave them
+            start_ci = int(rs["chunks_done"])
+            parts = [tuple(t.to(dev) for t in part) for part in rs["parts"]]
+            f = rs["f"].to(dev)
+            oob_sum = None if rs["oob_sum"] is None else rs["oob_sum"].to(dev)
+            oob_cnt = None if rs["oob_cnt"] is None else rs["oob_cnt"].to(dev)
+            history = list(rs["history"])
+            stop_series = list(rs["stop_series"])
         weights = s.w if p.weights_column else None
-        for c0 in range(0, p.ntrees, interval):
+        for ci in range(start_ci, len(chunks)):
+            failpoints.hit("train.gbm.chunk")
+            job.check_cancelled()
+            if history and job.time_exceeded():
+                break   # keep the partial forest; the first chunk always
+                        # trains (the reference's max_runtime contract)
+            keys_c, rates_c = chunks[ci]
             f, osum, ocnt, trees = train_trees(
-                s.Xb, s.y, s.w, f, s.edges, s.edge_ok, keys[c0:c0 + interval],
-                rates[c0:c0 + interval], cfg, grad_fn, iscat=s.iscat,
-                nedges=s.nedges, mono=s.mono, imat=s.imat)
+                s.Xb, s.y, s.w, f, s.edges, s.edge_ok, keys_c, rates_c, cfg,
+                grad_fn, iscat=s.iscat, nedges=s.nedges, mono=s.mono,
+                imat=s.imat)
             oob_sum = osum if oob_sum is None else oob_sum + osum
             oob_cnt = ocnt if oob_cnt is None else oob_cnt + ocnt
             parts.append(trees)
-            ntrees_done = min(c0 + interval, p.ntrees)
-            # DRF scores out of bag throughout, like the reference
+            ntrees_done = sum(int(t[0].shape[0]) for t in parts)
+            # DRF scores out of bag throughout, like the reference; a
+            # continuation's OOB would cover only its own trees, so it
+            # reports in-bag metrics
             m = None
-            if self.drf_mode and p.sample_rate < 1.0:
+            if self.drf_mode and p.sample_rate < 1.0 and n_prior == 0:
                 m = _oob_metrics(s.category, oob_sum, oob_cnt, s.y, s.ymask,
                                  weights, p.auc_type, output.response_domain)
                 if m is not None:
@@ -433,14 +520,30 @@ class GBM(ModelBuilder):
             history.append({"timestamp": time.time(),
                             "number_of_trees": ntrees_done,
                             "training_metrics": m})
+            job.update(len(keys_c) / max(n_new, 1))
+            if p.export_checkpoints_dir:
+                self._export_snapshot(p, output, parts, f0, dist, cfg, s,
+                                      ntrees_done, m)
             if self._should_stop(m, stop_series):
                 break
+            # the exact carried state at this resumable boundary, written
+            # when the interval is due (after the stop decision, so a
+            # resumed run sees the same stopping series)
+            self._recovery_tick(
+                lambda ci=ci: {
+                    "algo": self.algo_name, "chunks_done": ci + 1,
+                    "n_prior": n_prior, "f0": f0,
+                    "use_sets": bool(cfg.use_sets), "parts": list(parts),
+                    "f": f, "oob_sum": oob_sum, "oob_cnt": oob_cnt,
+                    "history": list(history),
+                    "stop_series": list(stop_series)},
+                progress={"ntrees_done": ntrees_done,
+                          "ntrees_total": int(p.ntrees)})
         output.scoring_history = history
         output.training_metrics = history[-1]["training_metrics"]
-        forest = {k: torch.cat([t[i] for t in parts])
-                  for i, k in enumerate(_FOREST_KEYS)}
+        forest = _assemble_forest(parts)
         output.variable_importances = _varimp(forest, s.names)
-        model = self.model_class(p, output, forest, s.f0, dist, cfg, s.is_cat,
+        model = self.model_class(p, output, forest, f0, dist, cfg, s.is_cat,
                                  edges=s.edges_np, cat_nedges=s.nedges_np)
         if p.calibrate_model:
             model.calib = self._fit_calibration(model, s.category)
@@ -448,6 +551,91 @@ class GBM(ModelBuilder):
             output.validation_metrics = model.model_performance(
                 p.validation_frame)
         return model
+
+    def _continue_from(self, prior: GBMModel, s):
+        """Checkpoint restart: check the prior against this build, then
+        replay it. Returns (params with the prior as a key, tree config,
+        f0, the carried margin)."""
+        p, cfg, K = self.params, s.cfg, s.K
+        if p.ntrees <= prior.ntrees:
+            raise ValueError(
+                f"checkpoint model already has {prior.ntrees} trees; "
+                f"ntrees must exceed that (got {p.ntrees})")
+        prior_mono = getattr(prior.params, "monotone_constraints", None) or {}
+        for fld, ours, theirs in (
+                ("max_depth", p.max_depth, prior.cfg.max_depth),
+                # cfg.nbins is the effective bin count (exact small-data
+                # binning may widen it); the user contract is the param
+                ("nbins", p.nbins, getattr(prior.params, "nbins",
+                                           prior.cfg.nbins)),
+                ("nbins_cats", p.nbins_cats,
+                 getattr(prior.params, "nbins_cats", 1024)),
+                ("nclasses", K, prior.cfg.nclass),
+                ("drf_mode", self.drf_mode, prior.cfg.drf_mode),
+                ("monotone_constraints", dict(p.monotone_constraints or {}),
+                 dict(prior_mono))):
+            if ours != theirs:
+                raise ValueError(f"checkpoint incompatible: {fld} differs "
+                                 f"(checkpoint={theirs}, request={ours})")
+        # the stored params name the prior by key, not by object
+        p = self.params = dataclasses.replace(p, checkpoint=prior.key)
+        # continuation trees speak the prior forest's split language
+        if cfg.use_sets != prior.cfg.use_sets:
+            cfg = dataclasses.replace(cfg, use_sets=prior.cfg.use_sets)
+        dev = s.Xb.device
+        if prior.forest["feat"].device != dev:
+            prior = copy.copy(prior)    # the user's model stays where it is
+            prior.forest = {k: v.to(dev) for k, v in prior.forest.items()}
+            prior.f0 = prior.f0.to(dev)
+        thr_codes = _prior_thr_codes(prior, s.edges_np)
+        if thr_codes is not None:
+            fprev = prior._raw_f_codes(s.Xb, thr_codes,
+                                       s.edges_np.shape[1] + 1)
+        else:
+            info("checkpoint restart: prior split thresholds are not on the "
+                 "current bin grid — replaying over the raw columns instead")
+            fr = p.training_frame
+            fprev = prior._raw_f(torch.stack(
+                [fr.vec(n).data for n in prior.output.names], dim=1))
+        f = (fprev.T if K > 1 else fprev).to(torch.float32).contiguous()
+        if self.drf_mode:
+            f = f * prior.ntrees    # _raw_f averages; the margin is the sum
+        return p, cfg, prior.f0, f
+
+    @staticmethod
+    def _resolve_checkpoint(cp) -> GBMModel:
+        """The prior model, given as itself or by its key in the store."""
+        from ..backend.kvstore import STORE
+
+        prior = STORE.get(cp) if isinstance(cp, str) else cp
+        if prior is None:
+            raise ValueError(f"checkpoint model '{cp}' not found")
+        return prior
+
+    def _export_snapshot(self, p, output, parts, f0, dist, cfg, s,
+                         ntrees_done: int, metrics) -> None:
+        """In-training snapshot every scoring interval
+        (`hex/tree/SharedTree.java:164,202-204,515`): the forest so far as
+        a model file ``<algo>_<ntrees:05d>.bin``."""
+        import os
+
+        from ..backend.kvstore import STORE
+        from ..backend.persist import save_model
+
+        snap_out = ModelOutput()
+        snap_out.__dict__.update(output.__dict__)
+        snap_out.training_metrics = metrics
+        snap = self.model_class(p, snap_out, _assemble_forest(parts), f0,
+                                dist, cfg, s.is_cat, edges=s.edges_np,
+                                cat_nedges=s.nedges_np,
+                                key=f"{self.algo_name}_checkpoint_snapshot")
+        try:
+            os.makedirs(p.export_checkpoints_dir, exist_ok=True)
+            save_model(snap, os.path.join(
+                p.export_checkpoints_dir,
+                f"{self.algo_name}_{ntrees_done:05d}.bin"))
+        finally:
+            STORE.remove(snap.key, cascade=False)
 
     def _fit_calibration(self, model, category):
         """Platt scaling on ``calibration_frame``
@@ -558,3 +746,45 @@ def _interaction_matrix(names, groups) -> np.ndarray:
 def _seed(p) -> int:
     """The reference's seed rule: -1 (or None) means 1234."""
     return 1234 if p.seed in (-1, None) else int(p.seed)
+
+
+def _prior_thr_codes(prior: GBMModel, edges_np: np.ndarray):
+    """A prior forest's split thresholds on the current bin grid, for the
+    code-space replay (``GBMModel._raw_f_codes``): the threshold array in
+    codes (float32, the forest's thr shape), or None when a numeric split
+    threshold is not an edge of the grid (a continuation on other data or
+    binning, where code-space routing would diverge)."""
+    feat = prior.forest["feat"].cpu().numpy()
+    thr = prior.forest["thr"].cpu().numpy().astype(np.float32)
+    internal = feat >= 0
+    f_idx = np.clip(feat, 0, None)
+    e = edges_np[f_idx]          # (..., W) each node's edge row
+    with np.errstate(invalid="ignore"):
+        codes = np.sum(e < thr[..., None], axis=-1).astype(np.float32)
+        on_grid = np.any(e == thr[..., None], axis=-1)
+    needs_grid = internal
+    if prior.cfg.use_sets and prior.is_cat is not None:
+        # set-split nodes route through their catd rows; their threshold is
+        # never compared
+        needs_grid = internal & ~np.asarray(prior.is_cat)[f_idx]
+    if not bool(np.all(on_grid[needs_grid])):
+        return None
+    return codes
+
+
+def _assemble_forest(parts) -> dict:
+    """Chunks' tree arrays -> the model's forest dict. A narrower catd
+    table (a prior built where exact binning chose fewer bins) is padded on
+    the right with each node's NA direction: a level landing in a bin the
+    prior never had is routed like a missing value."""
+    out = {}
+    for i, k in enumerate(_FOREST_KEYS):
+        arrs = [t[i] for t in parts]
+        if k == "catd":
+            w = max(a.shape[-1] for a in arrs)
+            arrs = [a if a.shape[-1] == w else torch.cat(
+                [a, (~part[2]).to(torch.float32)[..., None].expand(
+                    *a.shape[:-1], w - a.shape[-1])], dim=-1)
+                for a, part in zip(arrs, parts)]
+        out[k] = torch.cat(arrs)
+    return out

@@ -524,7 +524,7 @@ class GLM(ModelBuilder):
         return cls(link, tweedie_variance_power=p.tweedie_variance_power,
                    theta=p.theta)
 
-    def build_impl(self) -> GLMModel:
+    def build_impl(self, job) -> GLMModel:
         p = self.params
         fr = p.training_frame
         names = self.feature_names()
@@ -542,7 +542,7 @@ class GLM(ModelBuilder):
                   if p.offset_column else torch.zeros_like(y))
 
         beta, lambda_used, dev, nulldev, neff, iters = self._fit(
-            Xi, y, w, offset, family)
+            Xi, y, w, offset, family, job)
         X = Xi[:, :dinfo.ncols_expanded]
 
         output = ModelOutput()
@@ -577,7 +577,7 @@ class GLM(ModelBuilder):
         return model
 
     # -- the IRLS loop (`hex/glm/GLM.java:1682`) ------------------------------
-    def _fit(self, Xi, y, w, offset, family):
+    def _fit(self, Xi, y, w, offset, family, job=None):
         """IRLS over the design ``Xi`` (intercept column last): beta lives
         on the host in float64 and goes to the device as float32 on every
         step, as in the reference. Returns (beta, lambda, deviance, null
@@ -627,6 +627,8 @@ class GLM(ModelBuilder):
             l2 = (1 - alpha) * lam * neff
             dev_final = None
             for _it in range(max(p.max_iterations, 1)):
+                if job is not None:
+                    job.check_cancelled()
                 G, b, dev, _ = step(Xi, y, w, on_dev(beta), offset)
                 iters_total += 1
                 Gn = G.cpu().numpy().astype(np.float64)

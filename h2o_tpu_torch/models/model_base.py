@@ -1,15 +1,26 @@
 """Model / ModelBuilder / Parameters (``h2o_tpu/models/model_base.py``).
 
 ``Parameters`` keeps the reference's field names and defaults so the two
-packages take the same arguments. ``train_model`` runs the build
-synchronously on the training frame's device, with N-fold
-cross-validation (`hex/ModelBuilder.java:614` computeCrossValidation) when
-``nfolds`` or ``fold_column`` asks for it: fold assignment (random, modulo
-or stratified from numpy's ``default_rng(seed)``, or the fold column), one
-model per fold on the complement, holdout metrics and predictions, then
-the main model on the whole frame. Jobs, the K/V store, checkpoints and
-checkpoint exports wait for a later slice, and options that need them
-raise ``NotImplementedError``.
+packages take the same arguments. ``ModelBuilder.train()`` returns a
+``Job`` running the build on a worker thread (`hex/ModelBuilder.java:
+381-398` trainModel), cooperatively cancellable and bounded by
+``max_runtime_secs``; ``train_model()`` is ``train(False).join()``. The
+build runs on the training frame's device, with N-fold cross-validation
+(`hex/ModelBuilder.java:614` computeCrossValidation) when ``nfolds`` or
+``fold_column`` asks for it: fold assignment (random, modulo or stratified
+from numpy's ``default_rng(seed)``, or the fold column), one model per
+fold on the complement, holdout metrics and predictions, then the main
+model on the whole frame. Models and the CV output frames take keys and
+live in the K/V store.
+
+Preemption-proof training: with ``auto_recovery_dir`` the builder arms a
+``TrainingRecovery`` (``backend/persist.py``) and offers its exact
+iteration state at every chunk boundary (``_recovery_tick``); a killed
+job resumes bit-equal through ``resume_training``. A preempt request
+(``Job.request_preempt`` or the ``workload.preempt`` failpoint) checkpoints
+and unwinds with ``JobPreempted``. CV builds train without recovery, as in
+the reference. The reference's workload manager, telemetry spans and
+flight recorder are not ported (ROADMAP step L).
 """
 
 from __future__ import annotations
@@ -22,8 +33,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..backend.jobs import Job, JobPreempted
+from ..backend.kvstore import STORE, Keyed, make_key
 from ..frame.frame import Frame
 from ..frame.vec import T_CAT, Vec
+from ..utils import failpoints
+from ..utils.log import warn
 from ..parallel.mesh import padded_len
 from .metrics import make_metrics
 
@@ -45,6 +60,7 @@ class Parameters:
     keep_cross_validation_predictions: bool = False
     keep_cross_validation_fold_assignment: bool = False
     seed: int = -1
+    max_runtime_secs: float = 0.0
     distribution: str = "AUTO"
     ignore_const_cols: bool = True
     check_constant_response: bool = True
@@ -53,8 +69,12 @@ class Parameters:
     stopping_tolerance: float = 1e-3
     auc_type: str = "AUTO"  # multinomial AUC aggregate: AUTO(=NONE)|NONE|
                             # MACRO_OVR|WEIGHTED_OVR|MACRO_OVO|WEIGHTED_OVO
-    checkpoint: Any = None
-    export_checkpoints_dir: Optional[str] = None
+    checkpoint: Any = None          # prior model (or its key) to continue
+    export_checkpoints_dir: Optional[str] = None  # in-training snapshots
+    auto_recovery_dir: Optional[str] = None  # periodic atomic checkpoints
+                                    # of the running job; resume_training
+                                    # restarts a killed job bit-equal
+                                    # (knob H2O_TORCH_CHECKPOINT_SECS)
 
 
 class ModelOutput:
@@ -77,12 +97,24 @@ class ModelOutput:
         self.cv_fold_assignment = None       # Frame, when kept
 
 
-class Model:
+class Model(Keyed):
     algo_name = "base"
 
-    def __init__(self, params: Parameters, output: ModelOutput):
+    def __init__(self, params: Parameters, output: ModelOutput, key=None):
+        super().__init__(key=key, prefix=f"{self.algo_name}_model")
         self.params = params
         self.output = output
+        STORE.put_keyed(self)
+
+    def save(self, path: str) -> str:
+        """Binary model export (`hex/Model.java` exportBinaryModel)."""
+        from ..backend.persist import save_model
+
+        return save_model(self, path)
+
+    def remove_impl(self, store):
+        for m in self.output.cv_models:
+            store.remove(m.key)
 
     def score0(self, X: torch.Tensor) -> torch.Tensor:
         """Raw per-row prediction on a dense (R, F) matrix: (R,) for
@@ -166,6 +198,7 @@ class ModelBuilder:
 
     def __init__(self, params: Parameters):
         self.params = params
+        self.job: Job | None = None
         self._validate()
 
     def _validate(self):
@@ -182,16 +215,10 @@ class ModelBuilder:
             raise ValueError(f"{self.algo_name}: response_column is required")
         if p.training_frame.find(p.response_column) < 0:
             raise ValueError(f"response_column '{p.response_column}' not in frame")
-        for bad, what in ((p.offset_column and not self._offset_supported,
-                           "offset columns (ROADMAP Queue 1 item 6)"),
-                          (p.checkpoint is not None,
-                           "checkpoints (ROADMAP Queue 1 item 12)"),
-                          (p.export_checkpoints_dir,
-                           "export_checkpoints_dir (ROADMAP Queue 1 item "
-                           "12)")):
-            if bad:
-                raise NotImplementedError(f"{self.algo_name}: {what} is not "
-                                          f"ported yet")
+        if p.offset_column and not self._offset_supported:
+            raise NotImplementedError(f"{self.algo_name}: offset columns "
+                                      "(ROADMAP Queue 1 item 6) are not "
+                                      "ported yet")
         if p.check_constant_response and self._constant_response_check:
             r = p.training_frame.vec(p.response_column).rollups()
             if r.nacnt < r.nrow and r.mins == r.maxs:
@@ -241,30 +268,130 @@ class ModelBuilder:
             return v.data, "Multinomial", [str(i) for i in range(k)]
         return v.data, "Regression", None
 
-    def build_impl(self) -> Model:
+    def build_impl(self, job: Job) -> Model:
         raise NotImplementedError
 
-    def train_model(self) -> Model:
-        """Build synchronously (with cross-validation when ``nfolds`` >= 2
-        or a ``fold_column`` asks for it); ``run_time_ms`` is taken after
-        the device has finished the model's work."""
-        t0 = time.perf_counter()
+    def _is_cv(self) -> bool:
         p = self.params
-        if p.nfolds >= 2 or p.fold_column:
-            model = self._train_with_cv()
-        else:
-            model = self.build_impl()
-        if self.params.training_frame.device.type == "cuda":
-            torch.cuda.synchronize(self.params.training_frame.device)
-        model.output.run_time_ms = int((time.perf_counter() - t0) * 1000)
-        return model
+        return p.nfolds >= 2 or bool(p.fold_column)
+
+    def train(self, background: bool = True) -> Job:
+        """trainModel analog: the running Job. The build (with
+        cross-validation when ``nfolds`` >= 2 or a ``fold_column`` asks for
+        it) runs on a worker thread unless ``background`` is False;
+        ``run_time_ms`` is taken after the device has finished the model's
+        work."""
+        self.job = Job(f"{self.algo_name} training", work=1.0)
+        self.job.set_max_runtime(self.params.max_runtime_secs)
+        dev = self.params.training_frame.device
+
+        def run():
+            t0 = time.perf_counter()
+            self._arm_auto_recovery()
+            model = (self._train_with_cv(self.job) if self._is_cv()
+                     else self.build_impl(self.job))
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            model.output.run_time_ms = int((time.perf_counter() - t0) * 1000)
+            self.job.dest_key = model.key
+            if self._recovery is not None:
+                self._recovery.mark_completed(model.key)
+            return model
+
+        self.job.start(run, background=background, device=dev)
+        return self.job
+
+    def train_model(self) -> Model:
+        return self.train(background=False).join()
+
+    # -- preemption-proof training (auto-recovery checkpoints) ----------------
+    _recovery = None       # TrainingRecovery while an armed build runs
+    _resume_state = None   # iteration state injected by resume_training
+
+    def _arm_auto_recovery(self) -> None:
+        """Arm periodic atomic checkpointing when the params name a
+        recovery dir. CV builds train without it, as in the reference (the
+        manifest would need a per-fold protocol)."""
+        from ..backend.persist import TrainingRecovery
+
+        self._recovery = None
+        rdir = self.params.auto_recovery_dir
+        if not rdir:
+            return
+        if self._is_cv():
+            warn("auto-recovery checkpoints are not supported for CV "
+                 "builds — training without them")
+            return
+        try:
+            rec = TrainingRecovery(rdir)
+            if self._resume_state is None:
+                if not rec.init_for(self):
+                    return
+            else:
+                rec._last_write = time.monotonic()  # the interval restarts
+        except OSError as e:
+            # an unwritable dir degrades to training without insurance
+            warn(f"auto-recovery disabled: recovery dir {rdir!r} unusable "
+                 f"({e!r})")
+            return
+        self._recovery = rec
+
+    def _recovery_tick(self, state_fn, progress: dict | None = None) -> None:
+        """Builders call this at every boundary they can resume from; the
+        state is captured (and the write paid) only when the interval has
+        elapsed. ``state_fn`` returns the exact iteration state, tensors
+        welcome: restoring it and replaying the remaining iterations is
+        bit-equal to never having stopped."""
+        self._preempt_tick(state_fn, progress)
+        rec = self._recovery
+        if rec is None or not rec.due():
+            return
+        try:
+            rec.save_state(state_fn(), progress)
+        except OSError as e:
+            # disk gone mid-train: lose the insurance, keep the job
+            # (injected faults are RuntimeErrors and still propagate)
+            warn(f"auto-recovery disabled mid-train: checkpoint write to "
+                 f"{rec.dir!r} failed ({e!r})")
+            self._recovery = None
+
+    def _preempt_tick(self, state_fn, progress: dict | None = None) -> None:
+        """The preemption poll, on the checkpoint boundaries: a preempt
+        request (``Job.request_preempt``, or the ``workload.preempt``
+        failpoint) force-checkpoints the state, bypassing the interval, and
+        unwinds with ``JobPreempted``. Ignored when no recovery is armed: a
+        job without it never loses work."""
+        job = self.job
+        want = job is not None and job.preempt_requested
+        try:
+            failpoints.hit("workload.preempt")
+        except failpoints.InjectedFault:
+            want = True     # raise@K = "preempt exactly before boundary K"
+        rec = self._recovery
+        if not want or rec is None:
+            return
+        rec.save_state(state_fn(), progress)
+        if job is not None:
+            job.clear_preempt()
+        raise JobPreempted(str(job.key) if job else "<no job>", rec.dir)
+
+    def _take_resume_state(self):
+        """The iteration state ``resume_training`` injected (None on a
+        fresh build); a recovery dir of another algorithm refuses."""
+        rs = self._resume_state
+        if rs is not None and rs.get("algo") != self.algo_name:
+            raise ValueError(
+                f"recovery state is for algo {rs.get('algo')!r}, "
+                f"this builder is {self.algo_name!r}")
+        return rs
 
     # -- cross-validation (`hex/ModelBuilder.java:614`) -----------------------
-    def _train_with_cv(self) -> Model:
+    def _train_with_cv(self, job: Job) -> Model:
         """One model per fold on the other folds' rows, scored on its own
         fold, then the main model on the whole frame. Each fold builder
         takes the parameters with the fold's frame, no validation frame
-        and no folds, as the reference's does."""
+        and no folds, as the reference's does, under a job that shares the
+        outer job's deadline."""
         p = self.params
         fr = p.training_frame
         folds = self._fold_assignment(fr)
@@ -272,13 +399,16 @@ class ModelBuilder:
         cv_models, holdout_metrics, fold_preds = [], [], []
         holdout = names = None
         for f in range(nf):
+            job.check_cancelled()
             tr_idx = np.flatnonzero(folds != f)
             va_idx = np.flatnonzero(folds == f)
             va = fr.take(va_idx)
             sub = type(self)(dataclasses.replace(
                 p, training_frame=fr.take(tr_idx), validation_frame=None,
                 nfolds=0, fold_column=None))
-            m = sub.build_impl()
+            fold_job = Job(f"cv_{f}", work=1.0)
+            fold_job.deadline = job.deadline
+            m = sub.build_impl(fold_job)
             holdout_metrics.append(m.model_performance(va))
             if p.keep_cross_validation_predictions:
                 pf = m.predict(va)
@@ -294,17 +424,26 @@ class ModelBuilder:
                 full[idx] = cols
                 fold_preds.append(_columns_frame(names, full))
             cv_models.append(m)
-        main = self.build_impl()
+        main = self.build_impl(job)
         main.output.cross_validation_metrics = _mean_metrics(holdout_metrics)
         if p.keep_cross_validation_models:
             main.output.cv_models = cv_models
         if holdout is not None:
-            main.output.cv_holdout_predictions = _columns_frame(names, holdout)
+            hp = _columns_frame(names, holdout)
+            hp.key = make_key("cv_holdout_prediction")
+            STORE.put_keyed(hp)
+            main.output.cv_holdout_predictions = hp
+            for i, fp in enumerate(fold_preds):
+                fp.key = make_key(f"cv_{i + 1}_prediction")
+                STORE.put_keyed(fp)
             main.output.cv_fold_predictions = fold_preds
         if p.keep_cross_validation_fold_assignment:
-            main.output.cv_fold_assignment = Frame(
-                ["fold_assignment"],
-                [Vec.from_numpy(folds.astype(np.float32), device=fr.device)])
+            fa = Frame(["fold_assignment"],
+                       [Vec.from_numpy(folds.astype(np.float32),
+                                       device=fr.device)],
+                       key=make_key("cv_fold_assignment"))
+            STORE.put_keyed(fa)
+            main.output.cv_fold_assignment = fa
         return main
 
     def _fold_assignment(self, fr: Frame) -> np.ndarray:
@@ -326,6 +465,35 @@ class ModelBuilder:
                 out[idx] = rng.permutation(len(idx)) % p.nfolds
             return out
         return rng.integers(0, p.nfolds, size=n)
+
+
+def resume_training(recovery_dir: str, device=None) -> Model:
+    """Restart a killed training job from its auto-recovery directory and
+    train it to completion, on ``device`` (default ``cuda``).
+
+    Loads the builder class, the original params (frames from the dir) and
+    the latest checkpointed iteration state, then replays the remaining
+    iterations. Every random stream is indexed by global iteration and the
+    checkpoint holds the exact carried device state, so the model is
+    bit-equal to the one the uninterrupted run would have built. A job
+    killed before its first state write replays from the start, as the
+    reference's does.
+
+    Raises ``ValueError`` when the dir holds no training manifest or the
+    recorded job already completed (the manifest then names
+    ``model_key``)."""
+    from ..backend.persist import TrainingRecovery
+
+    builder_cls, params, state, manifest = TrainingRecovery.load(
+        recovery_dir, device=device)
+    if manifest.get("completed"):
+        raise ValueError(
+            f"training in {recovery_dir} already completed "
+            f"(model {manifest.get('model_key')!r}) — nothing to resume")
+    params = dataclasses.replace(params, auto_recovery_dir=recovery_dir)
+    builder = builder_cls(params)
+    builder._resume_state = state
+    return builder.train_model()
 
 
 def _columns_frame(names, cols: torch.Tensor) -> Frame:

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from ..utils import threefry
-from .gbm import (_FOREST_KEYS, GBM, GBMModel, GBMParameters, _metrics_raw,
-                  _seed, _varimp)
+from .gbm import (_FOREST_KEYS, GBM, GBMModel, GBMParameters,
+                  _assemble_forest, _metrics_raw, _seed, _varimp)
 from .glm import GLM, GLMParameters
 from .metrics import make_metrics
 from .model_base import ModelOutput
@@ -98,20 +98,20 @@ class XGBoost(GBM):
         cfg = super()._tree_config(K, nbins)
         return dataclasses.replace(cfg, reg_alpha=self.params.reg_alpha)
 
-    def build_impl(self):
+    def build_impl(self, job):
         booster = (self.params.booster or "gbtree").lower()
         if booster == "dart":
-            model = self._build_dart()
+            model = self._build_dart(job)
         elif booster == "gblinear":
-            model = self._build_gblinear()
+            model = self._build_gblinear(job)
         else:
-            model = super().build_impl()
+            model = super().build_impl(job)
         # a GBM or GLM model that reports "xgboost" as its algo, as the
         # reference does
         model.algo_override = "xgboost"
         return model
 
-    def _build_gblinear(self):
+    def _build_gblinear(self, job):
         """xgboost's L1/L2-penalised linear booster as the elastic-net GLM
         on the raw features. xgboost's penalties are absolute, so
         alpha * lambda * nrow = reg_alpha and (1 - alpha) * lambda * nrow =
@@ -135,11 +135,11 @@ class XGBoost(GBM):
             solver="COORDINATE_DESCENT" if category != "Multinomial"
             else "IRLSM",
             standardize=False, max_iterations=max(p.ntrees, 50), seed=p.seed)
-        model = GLM(gp).build_impl()
+        model = GLM(gp).build_impl(job)
         model.booster = "gblinear"
         return model
 
-    def _build_dart(self):
+    def _build_dart(self, job):
         """DART (Rashmi & Gilad-Bachrach 2015, xgboost ``booster=dart``).
         Each round after the first, unless ``skip_drop`` skips it, drops
         every earlier tree with probability ``rate_drop`` (at least one
@@ -152,16 +152,53 @@ class XGBoost(GBM):
         their weights in the leaves. A multinomial round's K class trees
         share one weight. The weights are baked into the stored leaves,
         then ``max_abs_leafnode_pred`` caps them. The model's
-        ``dropped_trees`` lists each round's dropped tree indices."""
+        ``dropped_trees`` lists, for each round this build trained, the
+        earlier tree indices it dropped.
+
+        A checkpoint continuation restarts the dropout trajectory over the
+        prior's baked trees, as the reference's does: they enter with
+        weight 1.0, the draws start afresh from the seed at round
+        ``n_prior``, and the carried sum is the prior's replayed margin.
+        ``export_checkpoints_dir`` gets the forest with its current weights
+        baked at every scoring interval. DART writes no auto-recovery
+        state, as in the reference: a killed DART job replays from the
+        start."""
         s = self._setup_build()
         p = self.params
         K = s.K
         rng = np.random.default_rng(_seed(p))
         cfg = s.cfg
+        f0 = s.f0
         fr = p.training_frame
         dev = fr.device
         # the dropped trees are scored over raw thresholds
         X = torch.stack([fr.vec(n).data for n in s.names], dim=1)
+        parts, weights = [], []
+        prior = None
+        if p.checkpoint is not None:
+            prior = self._resolve_checkpoint(p.checkpoint)
+            if p.ntrees <= prior.ntrees:
+                raise ValueError(
+                    f"checkpoint model already has {prior.ntrees} trees; "
+                    f"ntrees must exceed that (got {p.ntrees})")
+            for fld, ours, theirs in (
+                    ("max_depth", p.max_depth, prior.cfg.max_depth),
+                    ("nbins", p.nbins, getattr(prior.params, "nbins",
+                                               prior.cfg.nbins)),
+                    ("nclasses", K, prior.cfg.nclass),
+                    ("drf_mode", False, prior.cfg.drf_mode)):
+                if ours != theirs:
+                    raise ValueError(
+                        f"checkpoint incompatible: {fld} differs "
+                        f"(checkpoint={theirs}, request={ours})")
+            p = self.params = dataclasses.replace(p, checkpoint=prior.key)
+            if cfg.use_sets != prior.cfg.use_sets:
+                cfg = dataclasses.replace(cfg, use_sets=prior.cfg.use_sets)
+            pf = {k: v.to(dev) for k, v in prior.forest.items()}
+            for t in range(prior.ntrees):
+                parts.append(tuple(pf[k][t:t + 1] for k in _FOREST_KEYS))
+                weights.append(1.0)
+            f0 = prior.f0.to(dev)
         # trees build at rate 1 and uncapped: DART owns the scaling
         cfg1 = dataclasses.replace(cfg, ntrees=1, learn_rate=1.0,
                                    max_abs_leafnode_pred=float("inf"))
@@ -169,12 +206,22 @@ class XGBoost(GBM):
         one_rate = torch.ones((1,), dtype=torch.float32, device=dev)
         grad_fn = self._make_grad_fn(s.dist, K)
         lr = float(p.learn_rate)
-        f0b = s.f0[:, None] if K > 1 else s.f0
+        f0b = f0[:, None] if K > 1 else f0
         S = torch.zeros_like(s.f)   # sum of w_i * raw_i over the built trees
-        parts, weights, history, stop_series = [], [], [], []
-        drops = []      # per round, the earlier trees it dropped
+        if prior is not None:
+            fprev = prior._raw_f(X.to(prior.forest["feat"].device)).to(dev)
+            S = (fprev.T if K > 1 else fprev).to(torch.float32) - f0b
+        history, stop_series = [], []
+        drops = []      # per round this build trains, the trees it dropped
         interval = min(p.score_tree_interval or p.ntrees, p.ntrees)
+        n_prior = last_scored = len(parts)
         use_sets = cfg.use_sets
+        output = ModelOutput()
+        output.names = s.names
+        output.domains = {n: fr.vec(n).domain for n in s.names}
+        output.response_domain = (list(s.resp_domain) if s.resp_domain
+                                  else None)
+        output.model_category = s.category
 
         def dropped_sum(idxs):
             """sum over D of w_i * raw_i, one forest evaluation with each
@@ -189,7 +236,22 @@ class XGBoost(GBM):
                                  nedges=s.nedges if use_sets else None)
             return out.T if K > 1 else out
 
-        for t in range(p.ntrees):
+        def bake():
+            """Each tree's weight multiplied into its leaves, then the
+            ``max_abs_leafnode_pred`` cap on the stored leaf."""
+            cap = float(p.max_abs_leafnode_pred or float("inf"))
+            baked = []
+            for tree, wgt in zip(parts, weights):
+                v = tree[3] * float(np.float32(wgt))
+                if np.isfinite(cap):
+                    v = torch.clamp(v, -cap, cap)
+                baked.append(tree[:3] + (v,) + tree[4:])
+            return baked
+
+        for t in range(n_prior, p.ntrees):
+            job.check_cancelled()
+            if history and job.time_exceeded():
+                break   # keep the partial forest
             dropped: list[int] = []
             if t > 0 and rng.random() >= p.skip_drop:
                 dropped = [i for i in range(t) if rng.random() < p.rate_drop]
@@ -226,28 +288,19 @@ class XGBoost(GBM):
                 history.append({"timestamp": time.time(),
                                 "number_of_trees": t + 1,
                                 "training_metrics": m})
+                job.update((t + 1 - last_scored) / p.ntrees)
+                last_scored = t + 1
+                if p.export_checkpoints_dir:
+                    self._export_snapshot(p, output, bake(), f0, s.dist, cfg,
+                                          s, t + 1, m)
                 if self._should_stop(m, stop_series):
                     break
 
-        cap = float(p.max_abs_leafnode_pred or float("inf"))
-        baked = []
-        for tree, wgt in zip(parts, weights):
-            v = tree[3] * float(np.float32(wgt))
-            if np.isfinite(cap):
-                v = torch.clamp(v, -cap, cap)
-            baked.append(tree[:3] + (v,) + tree[4:])
-        forest = {k: torch.cat([t[i] for t in baked])
-                  for i, k in enumerate(_FOREST_KEYS)}
-        output = ModelOutput()
-        output.names = s.names
-        output.domains = {n: fr.vec(n).domain for n in s.names}
-        output.response_domain = (list(s.resp_domain) if s.resp_domain
-                                  else None)
-        output.model_category = s.category
+        forest = _assemble_forest(bake())
         output.scoring_history = history
         output.training_metrics = history[-1]["training_metrics"]
         output.variable_importances = _varimp(forest, s.names)
-        model = GBMModel(p, output, forest, s.f0, s.dist, cfg, s.is_cat,
+        model = GBMModel(p, output, forest, f0, s.dist, cfg, s.is_cat,
                          edges=s.edges_np, cat_nedges=s.nedges_np)
         model.dropped_trees = drops
         if p.calibrate_model:

@@ -28,6 +28,10 @@ def _knob(name: str, kind: str, default, doc: str) -> None:
     KNOBS[name] = Knob(name, kind, default, doc)
 
 
+_knob("H2O_TORCH_CHECKPOINT_SECS", "int", 600,
+      "wall-clock floor in seconds between auto-recovery state writes of "
+      "a training job; 0 writes at every chunk boundary "
+      "(backend/persist.py TrainingRecovery)")
 _knob("H2O_TORCH_EXACT_BIN_ROWS", "int", 16384,
       "padded rows at or below which tree binning may use exact "
       "small-data cuts (models/tree/binning.py)")

@@ -2,7 +2,11 @@
 level histogram through its flat and grouped wrappers, the weighted Gram,
 and small GLM, DRF, GBM-option and XGBoost fits on the card against the
 same fits on the CPU; a CSV imported on both devices and a GBM with
-cross-validation and calibration on it, and the multinomial AUC types.
+cross-validation and calibration on it, and the multinomial AUC types;
+the chunk decode on the card against the CPU decode for every codec
+(bit-equal), a model saved on one device and loaded on the other, a GBM
+killed and resumed on the card (bit-equal forest), and a background job
+training on the card.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -633,3 +637,107 @@ def test_multinomial_auc_types_on_the_card_match_the_cpu(dev):
             torch.from_numpy(w).to(d), auc_type=t) for d in (dev, "cpu")}
         assert abs(out[dev].auc - out["cpu"].auc) <= 1e-6
         assert abs(out[dev].pr_auc - out["cpu"].pr_auc) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# chunk codecs, model files and kill-and-resume on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["const", "int8", "cat8", "int16", "cat16",
+                                  "sparse0"])
+def test_decode_on_the_card_matches_the_cpu(dev, kind):
+    from h2o_tpu_torch.frame import chunks
+
+    rng = np.random.default_rng(4)
+    n = 5000
+    col = {"const": np.full(n, -1.25),
+           "int8": rng.integers(0, 200, n) * 0.5 - 3,
+           "cat8": rng.integers(0, 7, n),
+           "int16": rng.integers(0, 40_000, n) * 0.25,
+           "cat16": rng.integers(0, 3000, n),
+           "sparse0": np.where(rng.random(n) < 0.02, rng.normal(size=n),
+                               0.0)}[kind].astype(np.float32)
+    if kind != "const":
+        col[::53] = np.nan
+    host = np.full(5120, np.nan, np.float32)
+    host[:n] = col
+    codes, meta = chunks.encode_column(host, n, is_cat=kind.startswith("cat"))
+    assert meta.kind == kind
+    cpu = chunks.decode_chunk(chunks._to_device(codes, "cpu"), meta)
+    card = chunks.decode_chunk(chunks._to_device(codes, dev), meta)
+    assert card.cpu().numpy().tobytes() == cpu.numpy().tobytes()
+
+
+def _small_binomial(dev_name, n=2000, seed=3):
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.frame.vec import T_CAT, Vec
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + 0.3 * rng.normal(size=n) > 0).astype(np.float32)
+    fr = Frame.from_dict({f"x{j}": x[:, j] for j in range(3)},
+                         device=dev_name)
+    fr.add("y", Vec.from_numpy(y, type=T_CAT, domain=["0", "1"],
+                               device=dev_name))
+    return fr
+
+
+@pytest.mark.parametrize("saved_on", ["cuda", "cpu"])
+def test_model_saved_on_one_device_loads_on_the_other(dev, tmp_path,
+                                                      saved_on):
+    from h2o_tpu_torch import GBM, GBMParameters, load_model
+
+    other = "cpu" if saved_on == "cuda" else "cuda"
+    m = GBM(GBMParameters(training_frame=_small_binomial(saved_on),
+                          response_column="y", ntrees=5, max_depth=4,
+                          seed=1)).train_model()
+    m2 = load_model(m.save(str(tmp_path / "m.bin")), device=other)
+    assert m2.forest["val"].device.type == other
+    for k in m.forest:
+        assert torch.equal(m2.forest[k].cpu(), m.forest[k].cpu()), k
+    p_saved = m.predict(_small_binomial(saved_on)).vec(2).data.cpu()
+    p_loaded = m2.predict(_small_binomial(other)).vec(2).data.cpu()
+    torch.testing.assert_close(p_loaded, p_saved, rtol=0, atol=1e-6)
+
+
+def test_kill_and_resume_on_the_card_is_bit_equal(dev, tmp_path,
+                                                  monkeypatch):
+    from h2o_tpu_torch import GBM, GBMParameters, resume_training
+    from h2o_tpu_torch.utils import failpoints as fp
+
+    monkeypatch.setenv("H2O_TORCH_CHECKPOINT_SECS", "0")
+
+    def params(**kw):
+        return GBMParameters(training_frame=_small_binomial("cuda"),
+                             response_column="y", ntrees=6, max_depth=4,
+                             score_tree_interval=2, seed=5, **kw)
+
+    base = GBM(params()).train_model()
+    for k in (1, 2, 3):
+        rdir = str(tmp_path / f"k{k}")
+        fp.reset()
+        fp.arm("train.gbm.chunk", f"raise(preempt)@{k}")
+        with pytest.raises(fp.InjectedPreemption):
+            GBM(params(auto_recovery_dir=rdir)).train_model()
+        fp.reset()
+        m = resume_training(rdir)
+        assert m.forest["val"].device.type == "cuda"
+        for key in base.forest:
+            assert torch.equal(m.forest[key], base.forest[key]), (k, key)
+
+
+def test_background_job_trains_on_the_card(dev):
+    """A background job makes the frame's card its worker thread's current
+    device; its forest equals the inline build's."""
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    def params():
+        return GBMParameters(training_frame=_small_binomial("cuda"),
+                             response_column="y", ntrees=4, max_depth=4,
+                             seed=2)
+
+    job = GBM(params()).train()
+    m = job.join(timeout=300)
+    assert job.status == "DONE" and m.forest["val"].device.type == "cuda"
+    ref = GBM(params()).train_model()
+    for k in ref.forest:
+        assert torch.equal(m.forest[k], ref.forest[k]), k

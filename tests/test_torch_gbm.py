@@ -216,7 +216,10 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.backend.kernels.gram, h2o_tpu_torch.models.drf, "
             "h2o_tpu_torch.utils.threefry, h2o_tpu_torch.models.xgboost, "
             "h2o_tpu_torch.models.distributions, h2o_tpu_torch.io.parser, "
-            "h2o_tpu_torch.frame.split, h2o_tpu_torch.utils.twodimtable; "
+            "h2o_tpu_torch.frame.split, h2o_tpu_torch.utils.twodimtable, "
+            "h2o_tpu_torch.backend.kvstore, h2o_tpu_torch.backend.jobs, "
+            "h2o_tpu_torch.backend.persist, h2o_tpu_torch.utils.failpoints, "
+            "h2o_tpu_torch.utils.log; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -232,14 +235,17 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
     "coded_vec",
 ])
 def test_out_of_slice_options_raise(change, tmp_path):
-    """What the port still refuses raises naming its ROADMAP item: a
-    checkpoint (GBM's, and DART's continuation), GOSS (no port knob: the
-    reference reads H2O_TPU_GOSS, so its case is a TreeConfig that asks for
-    it), file formats other than CSV/TSV and URI schemes, and the chunk
-    codecs. The options a later slice ported are now taken: cross-
+    """What the port still refuses raises naming its ROADMAP item: GOSS
+    (no port knob: the reference reads H2O_TPU_GOSS, so its case is a
+    TreeConfig that asks for it), file formats other than CSV/TSV and URI
+    schemes. The options a later slice ported are now taken: cross-
     validation, calibration, a custom distribution (here the port's own
-    Gaussian, which grows the built-in's forest) and the multinomial AUC
-    family; their parity with the reference is in test_torch_cv.py."""
+    Gaussian, which grows the built-in's forest), the multinomial AUC
+    family (their parity with the reference is in test_torch_cv.py), the
+    chunk codecs (``compress`` codes the columns and decodes them bit for
+    bit) and checkpoints, GBM's and DART's, where a key the store does not
+    hold raises the reference's ``ValueError`` (their parity is in
+    test_torch_recovery.py)."""
     if change == "goss":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.TreeConfig(goss=(0.2, 0.1)).check_supported()
@@ -258,8 +264,12 @@ def test_out_of_slice_options_raise(change, tmp_path):
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
     if change == "coded_vec":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            fr.compress()
+        cfr = fr.compress()
+        assert cfr.names == fr.names
+        for n in fr.names:
+            a, b = fr.vec(n).data.numpy(), cfr.vec(n).data.numpy()
+            assert np.array_equal(a.view(np.int32), b.view(np.int32))
+        assert cfr.vec("y").meta.kind == "cat8"
         return
     kw = dict(KW, ntrees=1)
     builder, params = GBM, GBMParameters
@@ -275,7 +285,7 @@ def test_out_of_slice_options_raise(change, tmp_path):
     if change == dict(calibrate_model=True):
         kw.update(calibration_frame=fr)
     if change in (dict(checkpoint="prior_gbm"), "dart_checkpoint"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="checkpoint model .* not found"):
             builder(params(training_frame=fr, **kw)).train_model()
         return
     m = builder(params(training_frame=fr, **kw)).train_model()

@@ -73,6 +73,23 @@ FIXTURES = {
                                     '"3","two\nlines","4.5",""\r\n', {}),
     # levels that first appear after row 2^16: the interning's sample of
     # the first 65,536 fields does not cover the column
+    # int64's two bounds exact, one past either bound float64, leading
+    # zeros free
+    "int64_19_digits": ("t.csv", "a,b,c,d\n1234567890123456789,"
+                                 "9223372036854775807,-9223372036854775808,"
+                                 "9223372036854775808\n-1234567890123456789,"
+                                 "0000000000000000000001,5,"
+                                 "-9223372036854775809\n", {}),
+    # pyarrow's hex integers: either case, up to 16 digits as the 64 bits,
+    # mixed with decimals; next to a float or a bad digit, levels
+    "hex_integers": ("u.csv", "a,b,c,d,e\n0x10,0XaB,0x10,0xFFFFFFFFFFFFFFFF,"
+                              "0x10\n0x1f,0x7FFFFFFFFFFFFFFF,12,1,1.5\n0X0,"
+                              "0x8000000000000000,-3,NA,0x1g\n", {}),
+    # time32[s] columns: datetime.time host values, NA as None; fractional
+    # seconds or an out-of-range hour stay levels
+    "time_of_day": ("v.csv", "a,b,c,d\n03:04:05,03:04,03:04:05.5,25:00:00\n"
+                             "23:59:59,,03:04:05,01:00:00\n 00:00:00,12:00,"
+                             "NA,01:00:00\n", {}),
     "levels_after_65536": ("s.csv", "c,v\n" + "".join(
         f"{'ab'[i % 2] if i < 70_000 else 'zA'[i % 2]},{i % 7}\n"
         for i in range(70_010)), {}),

@@ -11,8 +11,9 @@ Contracts and tolerances:
   numpy draws); training metrics within 1e-6 relative;
 - gblinear: coefficients within 1e-4 x max(1, |beta|), the GLM
   comparison's tolerance;
-- what is not ported (DART checkpoints, checkpoint exports, a multinomial
-  gblinear) raises ``NotImplementedError`` naming its ROADMAP item.
+- a multinomial gblinear raises ``NotImplementedError`` naming its
+  ROADMAP item; DART's checkpoints and exports are taken (their parity
+  with the reference's continuation is in test_torch_recovery.py).
 """
 
 import dataclasses
@@ -23,7 +24,7 @@ import torch
 
 from h2o_tpu.models.xgboost import XGBoost as JXGBoost
 from h2o_tpu.models.xgboost import XGBoostParameters as JXGBoostParameters
-from h2o_tpu_torch import Frame, XGBoost, XGBoostParameters
+from h2o_tpu_torch import Frame, XGBoost, XGBoostParameters, load_model
 from h2o_tpu_torch.frame.vec import T_CAT, Vec
 
 from torch_parity import assert_forest_equal, assert_varimp_equal, train_both
@@ -176,7 +177,11 @@ def test_gblinear_matches_the_reference(case):
 
 @pytest.mark.parametrize("case", ["dart_checkpoint", "dart_export",
                                   "gblinear_multinomial"])
-def test_unported_xgboost_options_raise(case):
+def test_unported_xgboost_options_raise(case, tmp_path):
+    """A multinomial gblinear is refused by the GLM (ROADMAP Queue 1 item
+    8). DART's checkpoints and exports are ported now: an unknown prior
+    key raises the reference's ``ValueError``, and an export writes one
+    snapshot per scoring interval that loads and scores."""
     rng = np.random.default_rng(1)
     fr = Frame.from_dict({"x": rng.normal(size=300).astype(np.float32)},
                          device="cpu")
@@ -184,10 +189,22 @@ def test_unported_xgboost_options_raise(case):
                                type=T_CAT, domain=["a", "b", "c"],
                                device="cpu"))
     kw = dict(training_frame=fr, response_column="y", ntrees=2)
+    snaps = str(tmp_path / "snaps")
     kw.update({"dart_checkpoint": dict(booster="dart", checkpoint="prior"),
                "dart_export": dict(booster="dart",
-                                   export_checkpoints_dir="snaps"),
+                                   export_checkpoints_dir=snaps),
                "gblinear_multinomial": dict(booster="gblinear")}[case])
-    item = "item 8" if case == "gblinear_multinomial" else "item 12"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    if case == "dart_checkpoint":
+        with pytest.raises(ValueError, match="checkpoint model 'prior'"):
+            XGBoost(XGBoostParameters(**kw)).train_model()
+        return
+    if case == "dart_export":
+        m = XGBoost(XGBoostParameters(**kw)).train_model()
+        snap = load_model(str(tmp_path / "snaps" / "xgboost_00002.bin"),
+                          device="cpu")
+        assert snap.ntrees == m.ntrees == 2
+        for k in m.forest:
+            assert torch.equal(snap.forest[k], m.forest[k])
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         XGBoost(XGBoostParameters(**kw)).train_model()
