@@ -12,8 +12,10 @@ HIGGS-shaped binomial GLM (IRLS over the weighted Gram kernel) and the
 covertype-shaped multinomial DRF and XRT (depth 12, row and column
 sampling on jax's random streams, out-of-bag metrics); every GBM option of
 the port against the CPU; H2O's usual workflow from a CSV file on disk
-to cross-validated metrics; and state that outlives a training process
-(coded columns, model files, snapshots, kill-and-resume). In order:
+to cross-validated metrics; state that outlives a training process
+(coded columns, model files, snapshots, kill-and-resume); and
+unsupervised and neural models on an MNIST-shaped frame (DeepLearning,
+KMeans, PCA/SVD through the Gram kernel). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -179,7 +181,49 @@ to cross-validated metrics; and state that outlives a training process
     the CPU: the same frame bit for bit, equal folds and fold/main
     forests, leaves, holdout predictions, Platt (a, b) and GBM CV metrics
     within 1e-5, GLM coefficients within 1e-4 x max(1, |beta|) and GLM CV
-    metrics within 1e-4.
+    metrics within 1e-4;
+19. ``dl_mnist``: a generated MNIST-shaped frame (``_mnist_cols``: 60,000
+    rows x 784 integer pixels, 67 border pixels 0 in every row so 717
+    vary, a 10-level label from per-class stroke templates — a stand-in,
+    MNIST itself is not in the repo); DeepLearning at H2O-3's defaults
+    (hidden [200, 200], Rectifier, ADADELTA rho 0.99 epsilon 1e-8) with
+    the mini-batch lifted to 32, 1 epoch, seed 42: 717 inputs, training
+    logloss finite and below ln 10, error below 0.5, a second run's
+    weights and optimizer slots bit-equal; prints the wall, steps/s, peak
+    memory, and from two builds under ``torch.profiler`` whose difference
+    is steps alone the device launches and busy time per step and the
+    device's idle share; no launch of the port's kernels (none is on
+    this path: the reference's DL is plain XLA);
+20. ``dl_mnist_autoencoder``: ``autoencoder=True``, Tanh, hidden [128, 64,
+    128], 1 epoch: reconstruction MSE below the zero predictor's, the
+    ``anomaly`` column's mean equal to it within 1e-4 relative, and
+    ``deepfeatures(layer=1)`` a finite 64-wide frame;
+21. ``kmeans_mnist``: KMeans k = 10, Furthest, standardize, 10 iterations
+    at most, on those 64 deep features and on the 717 pixel columns:
+    iterations, ``tot_withinss`` below ``totss``, cluster sizes summing to
+    the rows, the wall;
+22. ``pca_mnist``: PCA k = 50 (STANDARDIZE, GramSVD) and SVD nv = 50 on
+    the pixels: one Gram launch each and no histogram launch, standard
+    deviations finite and descending, SVD's singular values PCA's, and
+    Randomized PCA's top five within 1e-3 relative of GramSVD's (its wall
+    beside theirs); then, after the counted run, the Gram kernel against
+    its plain version on PCA's own 60,160 x 717 design (z = None, the 0/1
+    row mask as W), the plain version on float64 copies of the inputs
+    (on an H100 the float32 one misses the float64 Gram by 3.1e-5 of an
+    entry's mass there, the kernel by 1.8e-6; its distance is printed),
+    with the timings of ``gram``;
+23. ``recovery_dl``: ``dl_mnist``'s model at 3 epochs with
+    ``auto_recovery_dir`` (a state write every epoch), killed at
+    ``train.dl.epoch:raise(preempt)@3`` and resumed with
+    ``resume_training``: weights and optimizer slots bit-equal to an
+    uninterrupted 3-epoch run; prints the frame save, the state writes
+    and the resume wall;
+24. ``unsupervised_card_vs_cpu``: 2,000 rows of the generator on the card
+    and on the CPU: DL (hidden [32, 32], 2 epochs) weights within 1e-4;
+    KMeans assignments agreeing on >= 99.9% of rows, ``tot_withinss``
+    within 1e-5 relative; PCA (k = 10) standard deviations within 1e-5
+    relative, vectors equal up to sign (|cos| >= 1 - 1e-5) where the
+    eigenvalues are separated by more than 1e-3 relative.
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, model files, snapshot and
@@ -188,7 +232,8 @@ removed after each phase.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
-plan picks carries that path's levels under ``covtype``), and last
+plan picks carries that path's levels under ``covtype``; the Gram entry
+carries its times at the CV GLM's and at PCA's design), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -224,6 +269,9 @@ IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
 SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
 RECOVERY_ROWS = 1_000_000      # recovery_card_vs_cpu: HIGGS rows
 RECOVERY_DRF_TREES = 50        # recovery_drf: drf_train's trees
+MNIST_ROWS = 60_000            # MNIST's training set
+MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
+MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
 #: what H2O's airlines demos pass to import_file
 IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
                     "DayOfWeek": "enum"}
@@ -1052,51 +1100,73 @@ def _gram_case(dev, R: int, P: int, g, reps: int) -> dict:
     return _gram_check(X, W, z, reps)
 
 
-def _gram_check(X, W, z, reps: int) -> dict:
+def _gram_check(X, W, z, reps: int, f64: bool = False) -> dict:
     """The Gram kernel on (X, W, z): two launches bit-equal, every entry
     within GRAM_TOL of its mass (the plain Gram of |X|, W, |z|) from the
-    plain version, and the four timings."""
+    plain version, and the four timings. ``z`` may be None (PCA's form:
+    G only). With ``f64`` the plain version that holds the kernel runs on
+    the float64 copies of the inputs (its float32 run is still the one
+    timed, and its own distance from the float64 one is reported): on
+    PCA's standardized MNIST design, on an H100, the float32 plain version
+    misses the float64 Gram by 3.1e-5 of an entry's mass, the kernel by
+    1.8e-6."""
     import torch
 
     from h2o_tpu_torch.backend.kernels import gram
 
     R, P = X.shape
+    has_z = z is not None
+    Xk, Wk, zk = X, W, z
     G1, b1 = gram._cuda_gram(X, W, z)
     G2, b2 = gram._cuda_gram(X, W, z)
     # the plain version's matmuls: cuBLAS sets itself up on its first call
     # of the process, which no earlier phase makes, so warm it up untimed
-    gram._plain_gram(X[:4096], W[:4096], z[:4096])
+    gram._plain_gram(X[:4096], W[:4096], z[:4096] if has_z else None)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     Gp, bp = gram._plain_gram(X, W, z)
     stop.record()
-    Xa = X.abs()
-    Gm, bm = gram._plain_gram(Xa, W, z.abs())
-    del Xa
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
-    _check(torch.equal(G1, G2) and torch.equal(b1, b2),
+    plain_f32_rel = None
+    if f64:
+        G32 = Gp
+        X, W = X.double(), W.double()
+        z = z.double() if has_z else None
+        Gp, bp = gram._plain_gram(X, W, z)
+    Xa = X.abs()
+    Gm, bm = gram._plain_gram(Xa, W, z.abs() if has_z else None)
+    del Xa
+    if f64:
+        plain_f32_rel = float(((G32 - Gp).abs() / (Gm + 1e-30)).max())
+        del G32, X, W, z
+        X, W, z = Xk, Wk, zk
+    _check(torch.equal(G1, G2) and (not has_z or torch.equal(b1, b2)),
            f"gram {R}x{P}: two launches differ")
-    err = max(float((G1 - Gp).abs().max()), float((b1 - bp).abs().max()))
-    rel = max(float(((G1 - Gp).abs() / (Gm + 1e-30)).max()),
-              float(((b1 - bp).abs() / (bm + 1e-30)).max()))
+    err = float((G1 - Gp).abs().max())
+    rel = float(((G1 - Gp).abs() / (Gm + 1e-30)).max())
+    if has_z:
+        err = max(err, float((b1 - bp).abs().max()))
+        rel = max(rel, float(((b1 - bp).abs() / (bm + 1e-30)).max()))
     _check(rel <= GRAM_TOL, f"gram {R}x{P}: off by {rel:.3g} of the entry "
                             f"mass (limit {GRAM_TOL})")
     del Gp, bp, Gm, bm
     kernel_ms = _cuda_ms(lambda: gram._cuda_gram(X, W, z), reps)
     # yardstick: one torch.mm of precomputed (W o X)^T and [X | z]
     A = X * W[:, None]
-    B = torch.cat([X, z[:, None]], dim=1)
+    B = torch.cat([X, z[:, None]], dim=1) if has_z else X
     library_ms = _cuda_ms(lambda: torch.mm(A.T, B), reps)
     del A, B
-    nbytes = R * P * 4 + 2 * R * 4 + (P * P + P) * 4
-    flops = 2 * R * (P * (P + 1) // 2 + P)   # G is symmetric: its triangle, and b
+    nbytes = R * P * 4 + (1 + has_z) * R * 4 + (P * P + has_z * P) * 4
+    # G is symmetric: its triangle, and b
+    flops = 2 * R * (P * (P + 1) // 2 + has_z * P)
     # the kernel's products run on the tensor cores in 3xTF32, so its
     # operations are bounded at that rate; the float32 FMA rate's bound is
     # printed beside it
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / TF32X3_OPS_PER_S
-    tile, tiles, n_chunks, chunk_rows, bk = gram._gram_plan(R, P, True)
+    tile, tiles, n_chunks, chunk_rows, bk = gram._gram_plan(R, P, has_z)
     return dict(rows=R, cols=P, max_abs_err=err, max_rel_mass=rel,
+                plain_f32_rel_mass=plain_f32_rel,
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(by_bytes, by_ops) * 1e3,
                 bound_by="bytes" if by_bytes >= by_ops
@@ -2182,6 +2252,436 @@ def phase_recovery_card_vs_cpu(dev) -> None:
         pred_max_abs_err=pred_err, **cmp)), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the MNIST-shaped unsupervised and neural slice
+# ---------------------------------------------------------------------------
+def _mnist_cols(nrow: int, seed: int = 784):
+    """An MNIST-shaped design (a stand-in: MNIST itself is not in the
+    repo): ``pixels`` (nrow, 784) uint8 in 0..255 (28 x 28, row-major) and
+    ``labels`` (nrow,) in 0..9. Each class has a stroke template (four
+    thick random segments on the canvas); a row draws its class's template
+    shifted by up to 3 pixels each way and blended with a third of another
+    class's, and lights each pixel with that map's probability plus a
+    floor — about a fifth of all pixels, at an intensity in 1..255.
+    MNIST_BORDER pixels of the outer ring stay 0 in every row, as in
+    MNIST's training set, so 717 columns vary."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:28, 0:28].astype(np.float64)
+    tmpl = np.zeros((10, 28, 28))
+    for c in range(10):
+        for _ in range(4):
+            (y0, x0), (y1, x1) = rng.uniform(6, 22, size=(2, 2))
+            dy, dx = y1 - y0, x1 - x0
+            t = np.clip(((yy - y0) * dy + (xx - x0) * dx)
+                        / max(dy * dy + dx * dx, 1e-9), 0, 1)
+            d = np.hypot(yy - (y0 + t * dy), xx - (x0 + t * dx))
+            tmpl[c] = np.maximum(tmpl[c], np.exp(-(d / 2.0) ** 2))
+    shifts = [(a, b) for a in range(-3, 4) for b in range(-3, 4)]
+    maps = np.stack([np.roll(tmpl, sh, axis=(1, 2)) for sh in shifts],
+                    axis=1).reshape(10, len(shifts), 784).astype(np.float32)
+    labels = rng.integers(0, 10, nrow)
+    other = (labels + rng.integers(1, 10, nrow)) % 10
+    sh = rng.integers(0, len(shifts), nrow)
+    p = 0.65 * maps[labels, sh] + 0.35 * maps[other, sh]
+    floor = np.float32(0.02)
+    p = np.clip(floor + (0.2 - floor) / p.mean() * p, 0, 0.95)
+    ring = [i for i in range(784)
+            if i // 28 in (0, 27) or i % 28 in (0, 27)]
+    p[:, ring[:MNIST_BORDER]] = 0.0
+    u = rng.random((nrow, 784), dtype=np.float32)
+    pixels = np.where(u < p, 1 + np.floor(254 * (1 - u / np.maximum(
+        p, 1e-9))), 0).astype(np.uint8)
+    return pixels, labels
+
+
+def _mnist_frame(nrow: int, device):
+    """The MNIST-shaped frame: pixel columns C1..C784 and the categorical
+    ``label`` (levels "0".."9")."""
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.frame.vec import T_CAT, Vec
+
+    pixels, labels = _mnist_cols(nrow)
+    cols = np.ascontiguousarray(pixels.T).astype(np.float32)
+    fr = Frame([f"C{j + 1}" for j in range(784)],
+               [Vec.from_numpy(cols[j], device=device) for j in range(784)])
+    fr.add("label", Vec.from_numpy(labels.astype(np.float32), type=T_CAT,
+                                   domain=[str(i) for i in range(10)],
+                                   device=device))
+    return fr
+
+
+def _dl_mnist(fr, **kw):
+    """H2O-3's DeepLearning defaults (hidden [200, 200], Rectifier,
+    ADADELTA rho 0.99, epsilon 1e-8) with the mini-batch lifted to 32, as
+    the reference does, 1 epoch, seed 42."""
+    from h2o_tpu_torch import DeepLearning, DeepLearningParameters
+
+    args = dict(training_frame=fr, response_column="label",
+                hidden=[200, 200], activation="Rectifier", epochs=1.0,
+                mini_batch_size=32, seed=42)
+    args.update(kw)
+    return DeepLearning(DeepLearningParameters(**args)).train_model()
+
+
+def _nets_equal(a, b) -> bool:
+    """Weights, biases and optimizer slots bit-equal."""
+    import torch
+
+    same = all(torch.equal(la[n], lb[n]) for la, lb in zip(a.net, b.net)
+               for n in ("W", "b"))
+    return same and a.opt_state.keys() == b.opt_state.keys() and all(
+        torch.equal(la[n], lb[n]) for k in a.opt_state
+        for la, lb in zip(a.opt_state[k], b.opt_state[k]) for n in la)
+
+
+def _reset_counts():
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    gram.GRAM_LAUNCHES = hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+
+
+def _counts() -> dict:
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    return dict(gram=gram.GRAM_LAUNCHES, flat=hist.LAUNCHES,
+                grouped=hist.GROUPED_LAUNCHES)
+
+
+def _profiled_steps(dev, fr, epochs) -> tuple[int, float, float]:
+    """(device launches, device busy us, wall s) of one DL build of
+    ``epochs`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _dl_mnist(fr, epochs=epochs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern), wall
+
+
+def phase_dl_mnist(dev, fr) -> dict:
+    """The MLP at H2O-3's defaults on the MNIST-shaped frame, twice at one
+    seed (bit-equal weights and slots), then the step's device launches and
+    the device's idle share from two builds under ``torch.profiler`` whose
+    difference is the steps alone."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m1 = _dl_mnist(fr)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    m2 = _dl_mnist(fr)
+    steps = fr.vec(0).plen // 32
+    tm = m1.output.training_metrics
+    lab = fr.vec("label").data[:fr.nrow]
+    pred = m1.predict(fr).vec(0).data[:fr.nrow]
+    err = float((pred != lab).float().mean())
+    n_a, busy_a, wall_a = _profiled_steps(dev, fr, 0.05)
+    n_b, busy_b, wall_b = _profiled_steps(dev, fr, 0.15)
+    dsteps = int(0.15 * steps) - int(0.05 * steps)
+    per_step = dict(launches=(n_b - n_a) / dsteps,
+                    busy_us=(busy_b - busy_a) / dsteps,
+                    wall_us_profiled=(wall_b - wall_a) * 1e6 / dsteps)
+    per_step["idle_share_profiled"] = (
+        1 - per_step["busy_us"] / per_step["wall_us_profiled"]
+        if n_b > n_a else None)
+    per_step["idle_share_unprofiled"] = (
+        1 - per_step["busy_us"] / (wall * 1e6 / steps) if n_b > n_a
+        else None)
+    out = dict(rows=fr.nrow, features=len(m1.output.names),
+               inputs=m1.net[0]["W"].shape[0], steps=steps, train_s=wall,
+               steps_per_s=steps / wall, logloss=tm.logloss,
+               mean_per_class_error=tm.mean_per_class_error,
+               train_error=err, peak_mem_gb=peak, launches=counts,
+               per_step=per_step,
+               second_run_bit_equal=_nets_equal(m1, m2))
+    print("dl_mnist", json.dumps(out), flush=True)
+    _check(out["second_run_bit_equal"],
+           "dl_mnist: two runs at one seed differ")
+    _check(out["features"] == 717 and out["inputs"] == 717,
+           f"dl_mnist: {out['features']} features, {out['inputs']} inputs")
+    _check(bool(np.isfinite(tm.logloss)) and tm.logloss < np.log(10)
+           and err < 0.5, f"dl_mnist: logloss {tm.logloss}, error {err}")
+    _check(sum(counts.values()) == 0,
+           f"dl_mnist: launches of kernels off its path: {counts}")
+    return out
+
+
+def phase_dl_mnist_autoencoder(dev, fr):
+    """The autoencoder (Tanh, hidden [128, 64, 128], 1 epoch): the
+    reconstruction MSE, the ``anomaly`` column's mean and the 64-wide
+    ``deepfeatures(layer=1)`` code frame, which it returns."""
+    import torch
+
+    from h2o_tpu_torch import DeepLearning, DeepLearningParameters
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = DeepLearning(DeepLearningParameters(
+        training_frame=fr, ignored_columns=["label"], autoencoder=True,
+        activation="Tanh", hidden=[128, 64, 128], epochs=1.0,
+        mini_batch_size=32, seed=42)).train_model()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    anom = m.anomaly(fr).vec(0).data[:fr.nrow]
+    codes = m.deepfeatures(fr, 1)
+    X = m.adapt_frame(fr)[:fr.nrow]
+    zero_mse = float((X * X).mean())     # predicting the standardized mean
+    out = dict(rows=fr.nrow, train_s=wall,
+               reconstruction_mse=m.output.training_metrics.mse,
+               anomaly_mean=float(anom.mean()), zero_predictor_mse=zero_mse,
+               deepfeatures=[codes.nrow, codes.ncol], launches=counts)
+    print("dl_mnist_autoencoder", json.dumps(out), flush=True)
+    _check(codes.ncol == 64 and codes.nrow == fr.nrow and all(
+        bool(torch.isfinite(v.data[:fr.nrow]).all()) for v in codes.vecs),
+        "dl_mnist_autoencoder: deep features")
+    _check(bool(torch.isfinite(anom).all())
+           and abs(out["anomaly_mean"] - out["reconstruction_mse"])
+           <= 1e-4 * out["reconstruction_mse"]
+           and out["reconstruction_mse"] < zero_mse,
+           f"dl_mnist_autoencoder: mse {out['reconstruction_mse']}, "
+           f"anomaly mean {out['anomaly_mean']}, zero predictor {zero_mse}")
+    _check(sum(counts.values()) == 0,
+           f"dl_mnist_autoencoder: launches off its path: {counts}")
+    return codes
+
+
+def _kmeans(fr, **kw):
+    from h2o_tpu_torch import KMeans, KMeansParameters
+
+    args = dict(training_frame=fr, k=10, init="Furthest", standardize=True,
+                max_iterations=10, seed=42)
+    args.update(kw)
+    return KMeans(KMeansParameters(**args)).train_model()
+
+
+def phase_kmeans_mnist(dev, codes, fr) -> dict:
+    """KMeans k = 10 (Furthest, standardize, 10 iterations) on the
+    autoencoder's 64 deep features and on the pixel columns."""
+    import torch
+
+    out = {}
+    for what, frame, kw in (("deepfeatures", codes, {}),
+                            ("pixels", fr, dict(ignored_columns=["label"]))):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = _kmeans(frame, **kw)
+        wall = time.perf_counter() - t0
+        tm = m.output.training_metrics
+        out[what] = dict(features=len(m.output.names), train_s=wall,
+                         iterations=m.output.num_iterations,
+                         tot_withinss=tm.tot_withinss, totss=tm.totss,
+                         sizes=tm.sizes.tolist(), launches=_counts())
+        _check(bool(np.isfinite(tm.tot_withinss))
+               and tm.tot_withinss < tm.totss
+               and int(tm.sizes.sum()) == frame.nrow
+               and np.isfinite(m.centers).all(),
+               f"kmeans_mnist {what}: {out[what]}")
+        _check(sum(out[what]["launches"].values()) == 0,
+               f"kmeans_mnist {what}: launches off its path")
+    print("kmeans_mnist", json.dumps(out), flush=True)
+    _check(out["deepfeatures"]["features"] == 64
+           and out["pixels"]["features"] == 717, "kmeans_mnist: widths")
+    return out
+
+
+def phase_pca_mnist(dev, fr) -> tuple[int, dict]:
+    """PCA k = 50 (STANDARDIZE, GramSVD) and SVD nv = 50 on the pixel
+    columns, one Gram launch each; Randomized PCA's wall beside GramSVD's;
+    then, after the counted run, the Gram kernel against its plain
+    version on the PCA's own design (z = None, the 0/1 row mask as W), and
+    the card's float32 ``eigh`` of that Gram against its float64 one (the
+    reason PCA's runs in float64). Returns the Gram launches and the
+    kernel's numbers at this design."""
+    import torch
+
+    from h2o_tpu_torch import PCA, SVD, PCAParameters, SVDParameters
+    from h2o_tpu_torch.backend.kernels import gram
+
+    common = dict(training_frame=fr, ignored_columns=["label"],
+                  transform="STANDARDIZE", seed=42)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = PCA(PCAParameters(k=50, pca_method="GramSVD", **common)
+              ).train_model()
+    pca_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svd = SVD(SVDParameters(nv=50, svd_method="GramSVD", **common)
+              ).train_model()
+    svd_s = time.perf_counter() - t0
+    counts = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnd = PCA(PCAParameters(k=50, pca_method="Randomized", **common)
+              ).train_model()
+    rnd_s = time.perf_counter() - t0
+    vi = pca.output.variable_importances
+    sdev, rsdev = vi["std_deviation"], rnd.output.variable_importances[
+        "std_deviation"]
+    # the kernel at this path's design: (X - mu) and the row mask
+    X, ok = pca.dinfo.expand(fr)
+    X = X - pca.mu
+    W = ((torch.arange(X.shape[0], device=dev) < fr.nrow) & ok).to(
+        torch.float32)
+    shape = _gram_check(X.contiguous(), W, None, reps=5, f64=True)
+    # why PCA's eigh runs in float64: the leading 50 eigenvalues of this
+    # Gram from the card's float32 eigh, against its float64 eigh
+    G, _ = gram._cuda_gram(X.contiguous(), W, None)
+    e64 = torch.linalg.eigvalsh(G.double()).flip(0)[:50]
+    e32 = torch.linalg.eigvalsh(G).flip(0)[:50].double()
+    eigh_f32_rel = float(((e32 - e64).abs() / e64.abs()).max())
+    del X, W, G
+    torch.cuda.empty_cache()
+    out = dict(rows=fr.nrow, P=len(pca.dinfo.expanded_names), pca_s=pca_s,
+               svd_s=svd_s, randomized_s=rnd_s, launches=counts,
+               sdev_top5=sdev[:5].tolist(), sdev_50=float(sdev[-1]),
+               cumulative_50=float(vi["cumulative_proportion"][-1]),
+               randomized_sdev_top5=rsdev[:5].tolist(),
+               eigh_f32_rel=eigh_f32_rel, gram_at_path=shape)
+    print("pca_mnist", json.dumps(out), flush=True)
+    _check(out["P"] == 717, f"pca_mnist: P = {out['P']}")
+    _check(counts["gram"] == 2 and counts["flat"] + counts["grouped"] == 0,
+           f"pca_mnist: launches {counts}, want 2 Gram (PCA and SVD)")
+    _check(bool(np.isfinite(sdev).all()) and bool(np.all(np.diff(sdev) <= 0))
+           and sdev[-1] > 0 and 0 < out["cumulative_50"] <= 1 + 1e-6,
+           "pca_mnist: standard deviations")
+    _check(np.allclose(svd.singular_values, pca.d.cpu().numpy(), rtol=1e-6),
+           "pca_mnist: SVD's singular values differ from PCA's")
+    _check(np.allclose(rsdev[:5], sdev[:5], rtol=1e-3),
+           f"pca_mnist: Randomized {rsdev[:5]} vs GramSVD {sdev[:5]}")
+    return counts["gram"], shape
+
+
+def phase_recovery_dl(dev, fr) -> dict:
+    """``dl_mnist``'s model at 3 epochs with ``auto_recovery_dir`` (a state
+    write at every epoch), killed at ``train.dl.epoch:raise(preempt)@3``
+    and resumed with ``resume_training``: weights and optimizer slots
+    bit-equal to an uninterrupted 3-epoch run."""
+    import shutil
+
+    import torch
+
+    from h2o_tpu_torch import resume_training
+    from h2o_tpu_torch.backend import persist
+    from h2o_tpu_torch.utils import failpoints
+
+    rdir = os.path.join(DATA_DIR, "recovery_dl")
+    shutil.rmtree(rdir, ignore_errors=True)
+    old = os.environ.get("H2O_TORCH_CHECKPOINT_SECS")
+    os.environ["H2O_TORCH_CHECKPOINT_SECS"] = "0"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = _dl_mnist(fr, epochs=3.0)
+        base_s = time.perf_counter() - t0
+        failpoints.arm("train.dl.epoch", "raise(preempt)@3")
+        t0 = time.perf_counter()
+        with _Walls(persist, "save_frame", dev) as frame_saves, \
+                _Walls(persist.TrainingRecovery, "save_state",
+                       dev) as writes:
+            try:
+                _dl_mnist(fr, epochs=3.0, auto_recovery_dir=rdir)
+                _check(False, "recovery_dl: the kill did not fire")
+            except failpoints.InjectedPreemption:
+                pass
+            killed_s = time.perf_counter() - t0
+            failpoints.reset()
+            killed_writes = len(writes.s)
+            t0 = time.perf_counter()
+            res = resume_training(rdir, device=dev)
+            resume_s = time.perf_counter() - t0
+        manifest = persist.Recovery(rdir).read()
+    finally:
+        failpoints.reset()
+        shutil.rmtree(rdir, ignore_errors=True)
+        if old is None:
+            os.environ.pop("H2O_TORCH_CHECKPOINT_SECS", None)
+        else:
+            os.environ["H2O_TORCH_CHECKPOINT_SECS"] = old
+    out = dict(rows=fr.nrow, epochs=3, killed_before_epoch=3,
+               uninterrupted_s=base_s, killed_run_s=killed_s,
+               resume_s=resume_s, frame_save_s=frame_saves.s,
+               state_writes=len(writes.s),
+               state_writes_killed_run=killed_writes, write_s=sum(writes.s),
+               completed=manifest["completed"],
+               epochs_trained=res.epochs_trained)
+    print("recovery_dl", json.dumps(out), flush=True)
+    _check(_nets_equal(res, base),
+           "recovery_dl: resumed weights or slots differ")
+    _check(manifest["completed"] and killed_writes == 2
+           and len(writes.s) == 3 and res.epochs_trained == 3.0,
+           f"recovery_dl: {len(writes.s)} state writes ({killed_writes} "
+           f"before the kill), manifest {manifest}")
+    return out
+
+
+def phase_unsupervised_card_vs_cpu(dev) -> None:
+    """MNIST_CPU_ROWS rows of the generator on the card and on the CPU: the
+    DL (hidden [32, 32], 2 epochs) weights within 1e-4; KMeans
+    assignments agreeing on >= 99.9% of rows with ``tot_withinss`` within
+    1e-5 relative; PCA (k = 10, STANDARDIZE) standard deviations within
+    1e-5 relative and vectors equal up to sign where the eigenvalues are
+    separated (|cos| >= 1 - 1e-5 for gaps above 1e-3 relative)."""
+    import torch
+
+    from h2o_tpu_torch import PCA, PCAParameters
+
+    frs = {d: _mnist_frame(MNIST_CPU_ROWS, d) for d in (dev, "cpu")}
+    dl = {d: _dl_mnist(f, hidden=[32, 32], epochs=2.0)
+          for d, f in frs.items()}
+    w_err = max(float((a[n].cpu() - b[n]).abs().max())
+                for a, b in zip(dl[dev].net, dl["cpu"].net)
+                for n in ("W", "b"))
+    km = {d: _kmeans(f, ignored_columns=["label"]) for d, f in frs.items()}
+    a_card = km[dev].predict(frs[dev]).vec(0).data[:MNIST_CPU_ROWS].cpu()
+    a_cpu = km["cpu"].predict(frs["cpu"]).vec(0).data[:MNIST_CPU_ROWS]
+    agree = float((a_card == a_cpu).float().mean())
+    tw = [km[d].output.training_metrics.tot_withinss for d in (dev, "cpu")]
+    pca = {d: PCA(PCAParameters(training_frame=f, ignored_columns=["label"],
+                                k=10, transform="STANDARDIZE")).train_model()
+           for d, f in frs.items()}
+    s_card = pca[dev].output.variable_importances["std_deviation"]
+    s_cpu = pca["cpu"].output.variable_importances["std_deviation"]
+    sd_rel = float(np.max(np.abs(s_card - s_cpu) / s_cpu))
+    Vc, Vh = pca[dev].V.cpu().numpy(), pca["cpu"].V.numpy()
+    cos = np.abs((Vc * Vh).sum(0)) / np.linalg.norm(Vc, axis=0) \
+        / np.linalg.norm(Vh, axis=0)
+    ev = s_cpu ** 2
+    gaps = np.minimum(np.r_[np.inf, -np.diff(ev)], np.r_[-np.diff(ev), ev[-1]])
+    separated = gaps / ev > 1e-3
+    out = dict(rows=MNIST_CPU_ROWS, dl_max_weight_err=w_err,
+               kmeans_agreement=agree, kmeans_tot_withinss=tw,
+               pca_sdev_rel=sd_rel, pca_min_cos_separated=float(
+                   cos[separated].min()) if separated.any() else None,
+               pca_separated=int(separated.sum()))
+    print("unsupervised_card_vs_cpu", json.dumps(out), flush=True)
+    _check(w_err <= 1e-4, f"unsupervised_card_vs_cpu: DL weights off by "
+                          f"{w_err}")
+    _check(agree >= 0.999 and abs(tw[0] - tw[1]) <= 1e-5 * abs(tw[1]),
+           f"unsupervised_card_vs_cpu: KMeans agreement {agree}, "
+           f"tot_withinss {tw}")
+    _check(sd_rel <= 1e-5 and separated.any()
+           and cos[separated].min() >= 1 - 1e-5,
+           f"unsupervised_card_vs_cpu: PCA sdev {sd_rel}, cos {cos}")
+    del frs, dl, km, pca
+    torch.cuda.empty_cache()
+
+
+
+
 def main() -> int:
     import torch
 
@@ -2276,6 +2776,20 @@ def main() -> int:
         "import_cv_glm", lambda d: phase_import_cv_glm(d, train, valid))
     del train, valid, calib
     run("import_cv_card_vs_cpu", phase_import_cv_card_vs_cpu)
+    t0 = time.perf_counter()
+    mnist = _mnist_frame(MNIST_ROWS, dev)
+    print(f"mnist frame {MNIST_ROWS}x785: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    run("dl_mnist", lambda d: phase_dl_mnist(d, mnist))
+    codes = run("dl_mnist_autoencoder",
+                lambda d: phase_dl_mnist_autoencoder(d, mnist))
+    run("kmeans_mnist", lambda d: phase_kmeans_mnist(d, codes, mnist))
+    del codes
+    pca_launches, gram_at_pca = run("pca_mnist",
+                                    lambda d: phase_pca_mnist(d, mnist))
+    run("recovery_dl", lambda d: phase_recovery_dl(d, mnist))
+    del mnist
+    run("unsupervised_card_vs_cpu", phase_unsupervised_card_vs_cpu)
     print("phase_s", json.dumps(phases), flush=True)
     # the covertype path's numbers join the entry of the wrapper its plan
     # picks: its launches, and its three levels' sums
@@ -2295,7 +2809,8 @@ def main() -> int:
                                         compress_airlines=cmp_launches),
              "gram": dict(glm_train=gram_launches,
                           xgboost_gblinear=gblinear_launches,
-                          import_cv_glm=cv_glm_launches)}
+                          import_cv_glm=cv_glm_launches,
+                          pca_mnist=pca_launches)}
     cov_entry = ("level_hist" if covtype["wrapper"] == "flat"
                  else "level_hist_grouped")
     paths[cov_entry].update(cov_nums["launches_by_path"])
@@ -2325,8 +2840,12 @@ def main() -> int:
                                    hist_at_path["max_abs_err"])
         if name == "gram":
             e["import_cv_glm_shape"] = gram_at_path
+            e["pca_mnist_shape"] = {k: gram_at_pca[k] for k in (
+                "rows", "cols", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
             e["max_abs_err"] = max(e["max_abs_err"],
-                                   gram_at_path["max_abs_err"])
+                                   gram_at_path["max_abs_err"],
+                                   gram_at_pca["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

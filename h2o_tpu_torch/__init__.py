@@ -24,7 +24,11 @@ binomial, quasibinomial, poisson, gamma, tweedie, negativebinomial) through
 IRLSM or coordinate descent, with or without lambda search — ``DataInfo``'s
 design expansion (``models/datainfo.py``) and the IRLS loop over the weighted
 Gram kernel (``backend/kernels/gram.py``, CUDA C++ in ``csrc/gram.cu``), the
-small solves on the host.
+small solves on the host. Unsupervised and neural models: DeepLearning
+(MLP and autoencoder, ``models/deeplearning.py``: autograd gradients,
+optax's ADADELTA and momentum SGD written out, the reference's init,
+shuffle and dropout streams), KMeans (``models/kmeans.py``) and PCA/SVD
+(``models/pca.py``: GramSVD through the Gram kernel, Power, Randomized).
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -47,11 +51,16 @@ from .frame.frame import Frame
 from .frame.split import split_frame
 from .frame.vec import Vec
 from .io.parser import ParseSetup, import_file
+from .models.deeplearning import (DeepLearning, DeepLearningModel,
+                                  DeepLearningParameters)
 from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
                          XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.glm import GLM, GLMModel, GLMParameters
+from .models.kmeans import KMeans, KMeansModel, KMeansParameters
 from .models.model_base import resume_training
+from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
+    SVDParameters
 from .models.xgboost import XGBoost, XGBoostParameters
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
@@ -59,4 +68,7 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "DRFParameters", "XRT", "XRTParameters", "GLM", "GLMModel",
            "GLMParameters", "XGBoost", "XGBoostParameters", "STORE",
            "compress_frame", "save_frame", "load_frame", "save_model",
-           "load_model", "resume_training"]
+           "load_model", "resume_training", "DeepLearning",
+           "DeepLearningModel", "DeepLearningParameters", "KMeans",
+           "KMeansModel", "KMeansParameters", "PCA", "PCAModel",
+           "PCAParameters", "SVD", "SVDModel", "SVDParameters"]

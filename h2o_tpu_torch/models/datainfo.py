@@ -17,6 +17,8 @@ finite everywhere.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,6 +52,13 @@ class DataInfo:
         """Whether numeric columns are mean-centered (center defaults to
         following `standardize`)."""
         return self.standardize if self.center is None else self.center
+
+    @staticmethod
+    def carried(ref) -> "DataInfo":
+        """A copy of another ``DataInfo``'s fields — the reference's, for
+        ``from_reference``."""
+        return DataInfo(**{f.name: copy.deepcopy(getattr(ref, f.name))
+                           for f in dataclasses.fields(DataInfo)})
 
     @staticmethod
     def make(fr: Frame, names, standardize=True, use_all_factor_levels=False,

@@ -21,7 +21,6 @@ or the IRLS coefficients drift.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -404,11 +403,6 @@ def _destandardize(beta: np.ndarray, di) -> np.ndarray:
     return B[0] if beta.ndim == 1 else B
 
 
-_DINFO_FIELDS = ("names", "is_cat", "domains", "cat_modes", "num_means",
-                 "num_sigmas", "use_all_factor_levels", "standardize",
-                 "missing_values_handling", "expanded_names", "center")
-
-
 class GLMModel(Model):
     algo_name = "glm"
     dispersion_estimated = None   # φ per dispersion_parameter_method
@@ -430,8 +424,7 @@ class GLMModel(Model):
         the same frame, the carried model scores what the reference
         scores."""
         resolve_device(device)
-        di = DataInfo(**{k: copy.deepcopy(getattr(ref.dinfo, k))
-                         for k in _DINFO_FIELDS})
+        di = DataInfo.carried(ref.dinfo)
         fam = ref.family
         cls = _FAMILIES.get(fam.name)
         if cls is None:
@@ -440,13 +433,7 @@ class GLMModel(Model):
         powers = dict(tweedie_variance_power=getattr(fam, "p", 1.5),
                       theta=getattr(fam, "theta", 1.0))
         family = cls(fam.link_name, **powers)
-        out = ModelOutput()
-        out.names = list(ref.output.names)
-        out.domains = {n: (list(d) if d is not None else None)
-                       for n, d in ref.output.domains.items()}
-        out.model_category = ref.output.model_category
-        if ref.output.response_domain is not None:
-            out.response_domain = list(ref.output.response_domain)
+        out = ModelOutput.carried(ref.output)
         params = GLMParameters(family=fam.name, link=fam.link_name,
                                standardize=di.standardize,
                                missing_values_handling=di.missing_values_handling,

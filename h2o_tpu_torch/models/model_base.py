@@ -96,6 +96,19 @@ class ModelOutput:
         self.cv_fold_predictions = None      # one Frame per fold, when kept
         self.cv_fold_assignment = None       # Frame, when kept
 
+    @staticmethod
+    def carried(ref) -> "ModelOutput":
+        """A reference model's output names, domains, category and response
+        domain, as plain lists (``from_reference``)."""
+        out = ModelOutput()
+        out.names = list(ref.names)
+        out.domains = {n: (list(d) if d is not None else None)
+                       for n, d in ref.domains.items()}
+        out.model_category = ref.model_category
+        if ref.response_domain is not None:
+            out.response_domain = list(ref.response_domain)
+        return out
+
 
 class Model(Keyed):
     algo_name = "base"
@@ -193,6 +206,8 @@ class ModelBuilder:
     """Per-algo builders subclass this and implement ``build_impl``."""
 
     algo_name = "base"
+    supervised = True                 # False: no response (KMeans, PCA, SVD,
+                                      # the DL autoencoder)
     _constant_response_check = False  # True in tree builders (SharedTree)
     _offset_supported = False         # True in builders that take an offset
 
@@ -211,15 +226,19 @@ class ModelBuilder:
             raise ValueError(
                 f"auc_type '{p.auc_type}' must be one of AUTO, NONE, "
                 "MACRO_OVR, WEIGHTED_OVR, MACRO_OVO, WEIGHTED_OVO")
-        if not p.response_column:
-            raise ValueError(f"{self.algo_name}: response_column is required")
-        if p.training_frame.find(p.response_column) < 0:
-            raise ValueError(f"response_column '{p.response_column}' not in frame")
+        if self.supervised:
+            if not p.response_column:
+                raise ValueError(f"{self.algo_name}: response_column is "
+                                 "required")
+            if p.training_frame.find(p.response_column) < 0:
+                raise ValueError(f"response_column '{p.response_column}' "
+                                 "not in frame")
         if p.offset_column and not self._offset_supported:
             raise NotImplementedError(f"{self.algo_name}: offset columns "
                                       "(ROADMAP Queue 1 item 6) are not "
                                       "ported yet")
-        if p.check_constant_response and self._constant_response_check:
+        if (self.supervised and p.check_constant_response
+                and self._constant_response_check):
             r = p.training_frame.vec(p.response_column).rollups()
             if r.nacnt < r.nrow and r.mins == r.maxs:
                 raise ValueError(
@@ -409,7 +428,11 @@ class ModelBuilder:
             fold_job = Job(f"cv_{f}", work=1.0)
             fold_job.deadline = job.deadline
             m = sub.build_impl(fold_job)
-            holdout_metrics.append(m.model_performance(va))
+            if self.supervised or type(m).model_performance is not \
+                    Model.model_performance:
+                # an unsupervised model has holdout metrics only where it
+                # defines its own (KMeans' clustering sums of squares)
+                holdout_metrics.append(m.model_performance(va))
             if p.keep_cross_validation_predictions:
                 pf = m.predict(va)
                 cols = torch.stack([v.data[:va.nrow] for v in pf.vecs],
@@ -457,7 +480,7 @@ class ModelBuilder:
         rng = np.random.default_rng(None if p.seed in (-1, None) else p.seed)
         if scheme == "MODULO":
             return np.arange(n) % p.nfolds
-        if scheme == "STRATIFIED":
+        if scheme == "STRATIFIED" and self.supervised:
             y = fr.vec(p.response_column).to_numpy()
             out = np.zeros(n, dtype=np.int64)
             for cls in np.unique(y[~np.isnan(y)]):

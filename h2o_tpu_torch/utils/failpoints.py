@@ -106,6 +106,8 @@ _failpoint("parser.parse",
 _failpoint("train.gbm.chunk",
            "models/gbm.py boosting chunk-loop top (GBM and DRF) — "
            "raise(preempt)@K kills the job before chunk K trains")
+_failpoint("train.dl.epoch",
+           "models/deeplearning.py epoch boundary — preemption mid-SGD")
 _failpoint("train.checkpoint",
            "model_base auto-checkpoint, fires after each successful "
            "recovery-state write — kill exactly between checkpoints")

@@ -1,12 +1,14 @@
-"""The ``jax.random`` calls the tree engine makes, bit for bit
-(``jax/_src/prng.py``, threefry2x32 with ``jax_threefry_partitionable``
-on, jax's default since 0.5).
+"""The ``jax.random`` calls the port's models make, bit for bit
+(``jax/_src/prng.py`` and ``random.py``, threefry2x32 with
+``jax_threefry_partitionable`` on, jax's default since 0.5): the tree
+engine's bits and uniforms, and DeepLearning's, KMeans' and PCA's
+uniforms on a range, normals, permutations and ``choice`` draws.
 
 A key is what ``jax.random.PRNGKey`` holds: a (2,) uint32 numpy array.
 Keys are derived on the host — ``prng_key``, ``fold_in`` and ``split`` are a
 handful of hashes of known integers — so deriving one never touches or
-waits for the device. Only ``random_bits`` and ``uniform`` make tensors,
-with torch integer ops on the device they are given.
+waits for the device. The draws make tensors with torch ops on the device
+they are given.
 
 In the partitionable mode:
 - ``fold_in(key, d)`` hashes the counter pair (0, d): the two words out are
@@ -86,8 +88,129 @@ def random_bits(key, shape, device=None) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
+def uniform(key, shape, device=None, minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32, as
+    ``_uniform`` computes it: the float in [0, 1) times ``maxval - minval``
+    (both first rounded to float32) plus ``minval``, then ``max(minval,
+    ·)``. XLA's CPU backend contracts the multiply-add into one FMA (a
+    single rounding), so it is done here in float64, where the float32
+    product is exact, and rounded once."""
     bits = random_bits(key, shape, device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return mant.view(torch.float32) - 1.0
+    floats = mant.view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    fma = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fma)
+
+
+#: XLA's float32 ``erf_inv`` (Giles' approximation): a degree-8
+#: polynomial in w = −log1p(−x²) − 2.5 for w < 5, in √w − 3 beyond
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` with its Horner steps contracted to FMAs,
+    as its CPU backend runs them. ``torch.log1p`` and XLA's ``log1p`` may
+    round differently: the result stays within 2 ulps of the reference's
+    (``torch.erfinv`` is a different approximation, many ulps away)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.where(small, np.float32(a).item(), np.float32(b).item())
+            for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE)]
+    p = coef[0].to(x.dtype)
+    for c in coef[1:]:
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * torch.inf,
+                       p * x)
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal`` in float32 (``_normal_real``): √2 · erfinv(u),
+    u uniform on (nextafter(−1, 0), 1), bit-equal to the reference's in
+    ~99% of draws and within 3 ulps in all (``_erf_inv``'s 2, and the
+    product's rounding)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, device, minval=lo, maxval=1.0)
+    return np.float32(np.sqrt(2.0)).item() * _erf_inv(u)
+
+
+def permutation(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``_shuffle`` of ``arange(n)``):
+    ⌈3·ln n / ln(2³²−1)⌉ rounds, each splitting the key, drawing one 32-bit
+    sort key per position and stable-sorting the values by them. int64 on
+    ``device``."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_MASK)))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,), device), stable=True).indices
+        x = x[order]
+    return x
+
+
+def cumsum(p: torch.Tensor) -> torch.Tensor:
+    """float32 ``jnp.cumsum`` of a 1-D tensor as XLA's CPU backend runs it:
+    its reduce-window rewrite scans blocks of 16 elements left to right,
+    scans the block totals the same way (recursively) and adds each block
+    the exclusive prefix of the totals before it. Bit-equal to the
+    reference's cumsum; ``torch.cumsum`` on the CPU accumulates in float64
+    and rounds each prefix once, which differs in the last bit."""
+    n = p.shape[0]
+    b = 16
+    nb = -(-n // b)
+    xp = torch.zeros(nb * b, dtype=torch.float32, device=p.device)
+    xp[:n] = p
+    inner = xp.reshape(nb, b).clone()
+    for j in range(1, b):
+        inner[:, j] = inner[:, j - 1] + inner[:, j]
+    if nb == 1:
+        return inner.reshape(-1)[:n]
+    tot = cumsum(inner[:, -1].contiguous())
+    excl = torch.cat([tot.new_zeros(1), tot[:-1]])
+    return (inner + excl[:, None]).reshape(-1)[:n]
+
+
+def gumbel(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` in its default "low" mode:
+    −log(−log(u)), u uniform on [tiny, 1)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, (n,), device, minval=tiny, maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
+def choice(key, n: int, shape=(), replace: bool = True, p=None,
+           device=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace, p)``, int64 indices, in
+    the three forms of the installed JAX:
+
+    - ``p`` and ``replace``: r = cumsum(p)[-1] · (1 − u), then the first
+      index whose cumulative sum reaches r (``searchsorted``, left);
+    - ``p`` without ``replace``: the top k of Gumbel noise + log p, the
+      lower index first on ties;
+    - no ``p``, no ``replace``: the first k of a permutation.
+
+    (``replace`` without ``p`` — ``randint`` — is not drawn by the port.)"""
+    shape = tuple(int(s) for s in shape)
+    k = int(np.prod(shape, dtype=np.int64))
+    if p is None:
+        if replace:
+            raise NotImplementedError("choice without p needs randint")
+        return permutation(key, n, device)[:k].reshape(shape)
+    p = p.to(torch.float32)
+    if replace:
+        c = cumsum(p)
+        r = c[-1] * (1.0 - uniform(key, shape, p.device))
+        return torch.searchsorted(c, r.reshape(-1)).reshape(shape)
+    g = gumbel(key, n, p.device) + torch.log(p)
+    order = torch.sort(g, descending=True, stable=True).indices
+    return order[:k].reshape(shape)

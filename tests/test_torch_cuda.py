@@ -5,8 +5,12 @@ same fits on the CPU; a CSV imported on both devices and a GBM with
 cross-validation and calibration on it, and the multinomial AUC types;
 the chunk decode on the card against the CPU decode for every codec
 (bit-equal), a model saved on one device and loaded on the other, a GBM
-killed and resumed on the card (bit-equal forest), and a background job
-training on the card.
+killed and resumed on the card (bit-equal forest), a background job
+training on the card; the Gram at PCA's MNIST design (z = None, a 0/1
+mask), a DeepLearning run bit-equal twice on the card, and KMeans and PCA
+on the card against the CPU (assignments agreeing on >= 99.9% of rows,
+``tot_withinss`` and standard deviations within 1e-5 relative, vectors
+equal up to sign where the eigenvalues are separated).
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -741,3 +745,91 @@ def test_background_job_trains_on_the_card(dev):
     ref = GBM(params()).train_model()
     for k in ref.forest:
         assert torch.equal(m.forest[k], ref.forest[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the unsupervised and neural slice
+# ---------------------------------------------------------------------------
+def _digits(n, dev, seed=784):
+    """An MNIST-like frame: 300 pixel columns in 0..255 (a fifth nonzero,
+    on class-dependent pixels, 20 always 0) and a 10-level ``label``."""
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.frame.vec import T_CAT, Vec
+
+    rng = np.random.default_rng(seed)
+    prob = rng.random((10, 300)) ** 3
+    prob = np.clip(0.02 + 0.18 / prob.mean() * prob, 0, 0.95)
+    prob[:, :20] = 0.0
+    y = rng.integers(0, 10, n)
+    u = rng.random((n, 300))
+    pix = np.where(u < prob[y], 1 + np.floor(254 * rng.random((n, 300))), 0)
+    fr = Frame.from_dict({f"C{j + 1}": pix[:, j].astype(np.float32)
+                          for j in range(300)}, device=dev)
+    fr.add("label", Vec.from_numpy(y.astype(np.float32), type=T_CAT,
+                                   domain=[str(i) for i in range(10)],
+                                   device=dev))
+    return fr
+
+
+def test_gram_kernel_at_the_pca_mnist_design(dev):
+    """z = None with a 0/1 row mask at MNIST's 60,000 x 717 (a row of 2,868
+    bytes, not a multiple of 16): two launches bit-identical, every entry
+    within 1e-5 of its mass from ``_plain_gram``."""
+    g = torch.Generator(device=dev).manual_seed(717)
+    X = torch.randn((60_000, 717), generator=g, device=dev)
+    W = (torch.rand((60_000,), generator=g, device=dev) < 0.9).float()
+    G1, b1 = gram.gram_accumulate(X, W)
+    G2, _ = gram.gram_accumulate(X, W)
+    Gp, _ = gram._plain_gram(X, W, None)
+    Gm, _ = gram._plain_gram(X.abs(), W, None)
+    torch.cuda.synchronize()
+    assert b1 is None and torch.equal(G1, G2) and torch.equal(G1, G1.T)
+    assert bool(((G1 - Gp).abs() <= GRAM_TOL * Gm).all())
+
+
+def test_deeplearning_is_bit_equal_twice_on_the_card(dev):
+    from h2o_tpu_torch import DeepLearning, DeepLearningParameters
+
+    fr = _digits(3000, "cuda")
+
+    def train():
+        return DeepLearning(DeepLearningParameters(
+            training_frame=fr, response_column="label", hidden=[64, 64],
+            epochs=2, seed=42)).train_model()
+
+    a, b = train(), train()
+    assert a.net[0]["W"].device.type == "cuda"
+    for la, lb in zip(a.net, b.net):
+        assert torch.equal(la["W"], lb["W"]) and torch.equal(la["b"], lb["b"])
+    for slot in ("e_g", "e_x"):
+        for la, lb in zip(a.opt_state[slot], b.opt_state[slot]):
+            assert torch.equal(la["W"], lb["W"])
+    assert a.output.training_metrics.logloss < np.log(10)
+
+
+def test_kmeans_and_pca_on_the_card_match_the_cpu(dev):
+    from h2o_tpu_torch import KMeans, KMeansParameters, PCA, PCAParameters
+
+    frs = {d: _digits(2000, d) for d in ("cuda", "cpu")}
+    km = {d: KMeans(KMeansParameters(training_frame=f, k=10, seed=42,
+                                     ignored_columns=["label"])).train_model()
+          for d, f in frs.items()}
+    a = km["cuda"].predict(frs["cuda"]).vec(0).data[:2000].cpu()
+    b = km["cpu"].predict(frs["cpu"]).vec(0).data[:2000]
+    assert float((a == b).float().mean()) >= 0.999
+    tw = [km[d].output.training_metrics.tot_withinss for d in ("cuda", "cpu")]
+    assert tw[0] == pytest.approx(tw[1], rel=1e-5)
+    pca = {d: PCA(PCAParameters(training_frame=f, k=8,
+                                transform="STANDARDIZE",
+                                ignored_columns=["label"])).train_model()
+           for d, f in frs.items()}
+    s_card = pca["cuda"].output.variable_importances["std_deviation"]
+    s_cpu = pca["cpu"].output.variable_importances["std_deviation"]
+    np.testing.assert_allclose(s_card, s_cpu, rtol=1e-5)
+    Vc, Vh = pca["cuda"].V.cpu().numpy(), pca["cpu"].V.numpy()
+    ev = s_cpu ** 2
+    gaps = np.minimum(np.r_[np.inf, -np.diff(ev)], np.r_[-np.diff(ev), ev[-1]])
+    cos = np.abs((Vc * Vh).sum(0)) / np.linalg.norm(Vc, axis=0) \
+        / np.linalg.norm(Vh, axis=0)
+    sep = gaps / ev > 1e-3
+    assert sep.any() and cos[sep].min() >= 1 - 1e-5

@@ -219,9 +219,10 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.frame.split, h2o_tpu_torch.utils.twodimtable, "
             "h2o_tpu_torch.backend.kvstore, h2o_tpu_torch.backend.jobs, "
             "h2o_tpu_torch.backend.persist, h2o_tpu_torch.utils.failpoints, "
-            "h2o_tpu_torch.utils.log; "
+            "h2o_tpu_torch.utils.log, h2o_tpu_torch.models.deeplearning, "
+            "h2o_tpu_torch.models.kmeans, h2o_tpu_torch.models.pca; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'h2o_tpu')); print(bad); "
+            "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)

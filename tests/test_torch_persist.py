@@ -317,8 +317,8 @@ def test_unregistered_site_raises_keyerror_everywhere():
         with pytest.raises(KeyError):
             fn()
     assert sorted(fp.FAILPOINTS) == ["parser.parse", "persist.checkpoint",
-                                     "train.checkpoint", "train.gbm.chunk",
-                                     "workload.preempt"]
+                                     "train.checkpoint", "train.dl.epoch",
+                                     "train.gbm.chunk", "workload.preempt"]
     assert all(decl.doc for decl in fp.FAILPOINTS.values())
 
 
