@@ -13,9 +13,10 @@ covertype-shaped multinomial DRF and XRT (depth 12, row and column
 sampling on jax's random streams, out-of-bag metrics); every GBM option of
 the port against the CPU; H2O's usual workflow from a CSV file on disk
 to cross-validated metrics; state that outlives a training process
-(coded columns, model files, snapshots, kill-and-resume); and
+(coded columns, model files, snapshots, kill-and-resume);
 unsupervised and neural models on an MNIST-shaped frame (DeepLearning,
-KMeans, PCA/SVD through the Gram kernel). In order:
+KMeans, PCA/SVD through the Gram kernel); and model search (AutoML, the
+multinomial GLM, stacked ensembles, grid recovery). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -223,7 +224,35 @@ KMeans, PCA/SVD through the Gram kernel). In order:
     KMeans assignments agreeing on >= 99.9% of rows, ``tot_withinss``
     within 1e-5 relative; PCA (k = 10) standard deviations within 1e-5
     relative, vectors equal up to sign (|cos| >= 1 - 1e-5) where the
-    eigenvalues are separated by more than 1e-3 relative.
+    eigenvalues are separated by more than 1e-3 relative;
+25. ``automl_higgs``: ``H2OAutoML(max_models=13, nfolds=3, seed=42,
+    exclude_algos=["DeepLearning"])`` (``AUTOML_FOLDS``, cut from 5) on
+    250,000 HIGGS-shaped rows at the full 28 features — 3 XGBoost, the
+    lambda-search GLM, DRF, GBM def_1..def_5, XRT, a 2-model GBM grid,
+    both ensembles: each step's
+    wall, launches and deepest level width, peak memory, the leaderboard
+    (AUCs finite, above 0.6, sorted; no step failed); the leader predicts,
+    partial dependence on two columns and permutation importance are
+    timed; then the flat kernel against its plain version on GBM def_5's
+    own codes, node ids and channels at its levels of 8,192 and 16,384
+    nodes, with the timings of ``level_hist``;
+26. ``glm_multinomial_covtype``: the multinomial GLM (lambda 1e-4) on the
+    covertype frame: sweeps x 7 x 3 Gram launches, mean per-class error
+    below 6/7, logloss below 1.205 nats, class rows summing to 1; then the
+    Gram against its plain version on the last class block's design;
+27. ``ensemble_covtype``: a 3-fold GBM (10 trees, depth 5), DRF (10
+    trees) and multinomial GLM under the AUTO metalearner: 21 level-one
+    columns, class probabilities finite, rows summing to 1 within 1e-5;
+28. ``automl_card_vs_cpu``: a plan with every algo (DeepLearning and a
+    grid included) at 20,000 HIGGS rows with 3 folds, card and CPU: the
+    same steps and combos, metrics within 1e-4, every ensemble's
+    metalearner coefficients within 1e-4 x max(1, |beta|) and its
+    predictions within 1e-4; the multinomial GLM on 20,000 covertype rows
+    likewise;
+29. ``grid_recovery``: a 4-combo GBM grid on 100,000 HIGGS rows killed at
+    its third manifest write and resumed: bit-equal to the uninterrupted
+    grid; and the grid with ``parallelism=2`` on the card: bit-equal to
+    the sequential grid, with as many flat launches.
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, model files, snapshot and
@@ -233,7 +262,9 @@ removed after each phase.
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
 plan picks carries that path's levels under ``covtype``; the Gram entry
-carries its times at the CV GLM's and at PCA's design), and last
+carries its times at the CV GLM's, at PCA's and at the multinomial
+GLM's class-block design; the flat entry carries GBM def_5's deep
+levels), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -272,6 +303,13 @@ RECOVERY_DRF_TREES = 50        # recovery_drf: drf_train's trees
 MNIST_ROWS = 60_000            # MNIST's training set
 MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
 MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
+AUTOML_ROWS = 250_000          # automl_higgs: HIGGS rows (cut from 11M)
+AUTOML_FOLDS = 3               # automl_higgs: CV folds (cut from 5: 78 fits
+                               # took 208-226 s on an H100 at 700 W, and
+                               # 100,000 rows no less: a deep tree's levels
+                               # cost by their 2^level nodes, not rows)
+AUTOML_CPU_ROWS = 20_000       # automl_card_vs_cpu: HIGGS and covertype rows
+GRID_ROWS = 100_000            # grid_recovery: HIGGS rows
 #: what H2O's airlines demos pass to import_file
 IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
                     "DayOfWeek": "enum"}
@@ -2682,6 +2720,532 @@ def phase_unsupervised_card_vs_cpu(dev) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# model search (grid, stacked ensembles, AutoML, the multinomial GLM)
+# ---------------------------------------------------------------------------
+class _FlatLevels:
+    """While open, every launch of the flat wrapper records its level
+    width under the current ``label``; for the labels in ``keep`` the
+    inputs of the last launch at each width of at least ``keep_from`` are
+    kept (the codes, node ids and channels that level really ran on), for
+    holding the kernel against its plain version after the counted run.
+    The launch itself, and its count, are the wrapper's own."""
+
+    def __init__(self, keep=(), keep_from: int = 8192):
+        self.keep, self.keep_from = set(keep), keep_from
+        self.label = None
+        self.deepest: dict = {}
+        self.inputs: dict = {}
+
+    def __enter__(self):
+        from h2o_tpu_torch.backend.kernels import hist
+
+        self.orig = orig = hist._cuda_flat
+
+        def recorded(Xb, lc, vv, n_lv, nbins_tot):
+            lb = self.label
+            self.deepest[lb] = max(self.deepest.get(lb, 0), n_lv)
+            if lb in self.keep and n_lv >= self.keep_from:
+                self.inputs[(lb, n_lv)] = (Xb, lc, vv, nbins_tot)
+            return orig(Xb, lc, vv, n_lv, nbins_tot)
+        hist._cuda_flat = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.backend.kernels import hist
+
+        hist._cuda_flat = self.orig
+
+
+def _timed_plan(plan, dev, levels, steps):
+    """The plan with each step's ``make`` wrapped: its wall (synchronised
+    with the card), its launches of each kernel and the models it made go
+    to ``steps``; ``levels.label`` names the running step."""
+    import torch
+
+    from h2o_tpu_torch.models.automl import Step
+
+    def wrap(step):
+        label = f"{step.algo}_{step.id}"
+
+        def make(aml):
+            before = _counts()
+            levels.label = label
+            t0 = time.perf_counter()
+            models = None
+            try:
+                models = step.make(aml)
+                return models
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                after = _counts()
+                steps.append(dict(
+                    step=label, s=time.perf_counter() - t0,
+                    launches={k: after[k] - before[k] for k in after},
+                    models=[m.key for m in models or []]))
+        return Step(step.algo, step.id, make, step.weight)
+    return [wrap(s) for s in plan]
+
+
+def _leaderboard_rows(aml, steps) -> list:
+    made = {k: s["step"] for s in steps for k in s["models"]}
+    lb = aml.leaderboard
+    return [dict(model=m.key, step=made.get(m.key),
+                 auc=lb._metric(m, "auc"), logloss=lb._metric(m, "logloss"))
+            for m in lb.models]
+
+
+def phase_automl_higgs(dev) -> tuple[dict, dict]:
+    """``H2OAutoML(max_models=13, nfolds=AUTOML_FOLDS, seed=42,
+    exclude_algos=["DeepLearning"])`` on AUTOML_ROWS HIGGS-shaped rows at
+    the full 28 features: every step of the default plan but DeepLearning
+    (3 XGBoost, the lambda-search GLM, DRF, GBM def_1..def_5, XRT, a 2-model
+    GBM grid) and both stacked ensembles. Prints each step's wall and
+    launches, the deepest level width each met, peak memory and the
+    leaderboard; requires finite AUCs above 0.6, sorted, 13 base models and
+    2 ensembles, every base-model step through the flat kernel and the GLM
+    and ensembles through the Gram; the leader predicts, and partial
+    dependence on two columns and permutation importance are timed. After
+    the counted run the flat kernel is held against its plain version on
+    GBM def_5's own codes, node ids and channels at each of its levels of
+    8,192 nodes or more. Returns the launches by kernel and the deep
+    levels' numbers."""
+    import torch
+
+    from h2o_tpu_torch import (H2OAutoML, partial_dependence,
+                               permutation_varimp)
+    from h2o_tpu_torch.backend.kernels import hist
+    from h2o_tpu_torch.models import automl
+
+    fr = _higgs_frame(AUTOML_ROWS, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FlatLevels(keep=("GBM_def_5",)) as levels:
+        aml = H2OAutoML(max_models=13, nfolds=AUTOML_FOLDS, seed=42,
+                        exclude_algos=["DeepLearning"],
+                        modeling_plan=_timed_plan(automl._default_plan(),
+                                                  dev, levels, steps))
+        aml.train(y="response", training_frame=fr)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for s in steps:
+        s["deepest_n_lv"] = levels.deepest.get(s["step"])
+    rows = _leaderboard_rows(aml, steps)
+    t0 = time.perf_counter()
+    pred = aml.predict(fr)
+    p1 = pred.vec(2).data[:fr.nrow]
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pdp = partial_dependence(aml.leader, fr, cols=["f0", "f3"])
+    pdp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pvi = permutation_varimp(aml.leader, fr, seed=42)
+    pvi_s = time.perf_counter() - t0
+    warns = [e["message"] for e in aml.event_log.events
+             if e["level"] == "Warn"]
+    # the kernel at def_5's deep levels, and at the deepest the run met,
+    # on the inputs those levels ran on
+    deep = {}
+    deepest = max(levels.deepest.values(), default=0)
+    for (lb, n_lv), (Xb, lc, vv, B) in sorted(levels.inputs.items(),
+                                                key=lambda kv: kv[0][1]):
+        plan = ((tuple(range(Xb.shape[1])), B, "onehot"),)
+        row = _grouped_level(dev, Xb, lc, vv, plan, n_lv, B, 5, flat=True)
+        row["step"] = lb
+        print("level_hist_automl", json.dumps(row), flush=True)
+        deep[n_lv] = row
+    levels.inputs.clear()
+    torch.cuda.empty_cache()
+    out = dict(rows=fr.nrow, train_s=train_s, steps=steps, launches=launches,
+               peak_mem_gb=peak, leaderboard=rows, leader=aml.leader.key,
+               predict_s=predict_s, pdp_s=pdp_s, varimp_s=pvi_s,
+               pdp_rows=[len(t.cell_values) for t in pdp],
+               varimp_top=[r[0] for r in pvi.cell_values[:3]],
+               deepest_n_lv=deepest, warnings=warns,
+               deep_levels={str(k): {c: v[c] for c in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                   "max_rel_mass", "clusters", "cluster")
+                   if c in v} for k, v in deep.items()})
+    print("automl_higgs", json.dumps(out), flush=True)
+    aucs = [r["auc"] for r in rows]
+    base = [r for r in rows if not r["model"].startswith("stackedensemble")]
+    _check(not warns, f"automl_higgs: steps failed: {warns}")
+    _check(len(base) == 13 and len(rows) == 15,
+           f"automl_higgs: {len(base)} base models, {len(rows)} in all")
+    _check(all(a is not None and np.isfinite(a) and a > 0.6 for a in aucs),
+           f"automl_higgs: leaderboard AUCs {aucs}")
+    _check(aucs == sorted(aucs, reverse=True),
+           f"automl_higgs: leaderboard not sorted by AUC: {aucs}")
+    for s in steps:
+        if s["step"].startswith("StackedEnsemble"):
+            _check(s["launches"]["gram"] > 0 and s["launches"]["flat"] == 0,
+                   f"automl_higgs: {s['step']} launches {s['launches']}")
+        elif s["step"].startswith("GLM"):
+            _check(s["launches"]["gram"] > 0 and s["launches"]["flat"] == 0,
+                   f"automl_higgs: {s['step']} launches {s['launches']}")
+        else:
+            _check(s["launches"]["flat"] > 0 and s["launches"]["gram"] == 0
+                   and s["launches"]["grouped"] == 0,
+                   f"automl_higgs: {s['step']} launches {s['launches']}")
+    _check(launches["grouped"] == 0, "automl_higgs: grouped launches")
+    _check(bool(torch.isfinite(p1).all()), "automl_higgs: leader predictions")
+    _check(levels.deepest.get("GBM_def_5") == 2 ** 14 and 2 ** 14 in deep
+           and 2 ** 13 in deep,
+           f"automl_higgs: GBM def_5's deepest level "
+           f"{levels.deepest.get('GBM_def_5')}, checked {sorted(deep)}")
+    del aml, fr, pred, p1
+    torch.cuda.empty_cache()
+    return launches, deep
+
+
+def _multinomial_glm(fr, **kw):
+    """The multinomial GLM on the covertype-shaped frame at lambda 1e-4
+    (alpha 0.5). Its 4 wilderness and 40 soil one-hots each sum to 1 in
+    every row, so at the default lambda 0 the design is exactly collinear
+    with the intercept and the unpenalised block solves diverge — in both
+    packages (on 4,000 rows the reference's coefficients reach 9.1e6 and
+    its training logloss 32.3; the port's 6.5e6 and 29.5). At 1e-4 both
+    give logloss 0.14144 there."""
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=fr, response_column="Cover_Type",
+                             family="multinomial", lambda_=1e-4, seed=42,
+                             **kw)).train_model()
+
+
+class _GramInputs:
+    """While open, the GLM's Gram calls keep the inputs of the last one
+    (a class block's design, IRLS weights and working response)."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import glm
+
+        self.orig, self.last = glm.gram_accumulate, None
+        orig = self.orig
+
+        def kept(X, W, z=None):
+            self.last = (X, W, z)
+            return orig(X, W, z)
+        glm.gram_accumulate = kept
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import glm
+
+        glm.gram_accumulate = self.orig
+
+
+def phase_glm_multinomial_covtype(dev, fr) -> tuple[int, dict]:
+    """The multinomial GLM on the covertype-shaped frame (581,012 x 54, 7
+    classes): per-class block IRLS, ``sweeps x 7 x 3`` Gram launches (6
+    sweeps at the default max_iterations) and no histogram launch; the
+    training mean per-class error below the prior's 6/7 and logloss below
+    the prior's 1.205 nats; probabilities finite with rows summing to 1
+    within 1e-5. After the counted run the Gram kernel is held against its
+    plain version on the last class block's weighted design. Returns the
+    launches and that check's numbers."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GramInputs() as kept:
+        model = _multinomial_glm(fr)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _counts()
+    sweeps = max(2, min(6, model.params.max_iterations // 5))
+    m = model.output.training_metrics
+    probs = _class_probs(model, fr)
+    row_err = float((probs.sum(1) - 1).abs().max())
+    X, W, z = kept.last
+    shape = _gram_check(X, W, z, reps=5)
+    del kept, X, W, z
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out = dict(rows=fr.nrow, P=len(model.dinfo.expanded_names) + 1,
+               classes=7, sweeps=sweeps, train_s=train_s,
+               launches=launches, logloss=m.logloss,
+               mean_per_class_error=m.mean_per_class_error,
+               row_sum_err=row_err, peak_mem_gb=peak, gram_at_block=shape)
+    print("glm_multinomial_covtype", json.dumps(out), flush=True)
+    _check(launches["gram"] == sweeps * 7 * 3 and launches["flat"] == 0
+           and launches["grouped"] == 0,
+           f"glm_multinomial_covtype: launches {launches}, want "
+           f"{sweeps * 21} Gram")
+    _check(np.isfinite(m.logloss) and m.logloss < 1.205,
+           f"glm_multinomial_covtype: logloss {m.logloss}")
+    _check(m.mean_per_class_error < 6 / 7,
+           f"glm_multinomial_covtype: mean per-class error "
+           f"{m.mean_per_class_error}")
+    _check(bool(torch.isfinite(probs).all()) and row_err <= 1e-5,
+           f"glm_multinomial_covtype: probabilities (row sums off by "
+           f"{row_err})")
+    del model, probs
+    torch.cuda.empty_cache()
+    return launches["gram"], shape
+
+
+def phase_ensemble_covtype(dev, fr) -> dict:
+    """A stacked ensemble on the covertype-shaped frame: 3-fold CV (Modulo,
+    holdout predictions kept) bases — a multinomial GBM (10 trees, depth
+    5), a DRF (10 trees) and the multinomial GLM (lambda 1e-4, as in
+    ``_multinomial_glm``) — under the AUTO
+    metalearner (a multinomial GLM over their 21 class columns). Requires
+    class probabilities finite with rows summing to 1 within 1e-5, the
+    ensemble's training logloss finite, flat launches for the trees and
+    Gram launches for the GLMs. Returns the launches."""
+    import torch
+
+    from h2o_tpu_torch import (DRF, GBM, GLM, DRFParameters, GBMParameters,
+                               GLMParameters, StackedEnsemble,
+                               StackedEnsembleParameters)
+
+    common = dict(training_frame=fr, response_column="Cover_Type", nfolds=3,
+                  fold_assignment="Modulo", seed=42,
+                  keep_cross_validation_predictions=True)
+    _reset_counts()
+    torch.cuda.synchronize()
+    walls, t0 = {}, time.perf_counter()
+    bases = []
+    for name, builder in (
+            ("gbm", lambda: GBM(GBMParameters(ntrees=10, max_depth=5,
+                                              **common))),
+            ("drf", lambda: DRF(DRFParameters(ntrees=10, **common))),
+            ("glm", lambda: GLM(GLMParameters(family="multinomial",
+                                              lambda_=1e-4, **common)))):
+        t1 = time.perf_counter()
+        bases.append(builder().train_model())
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+    before = _counts()
+    t1 = time.perf_counter()
+    se = StackedEnsemble(StackedEnsembleParameters(
+        training_frame=fr, response_column="Cover_Type", base_models=bases,
+        seed=42)).train_model()
+    torch.cuda.synchronize()
+    walls["ensemble"] = time.perf_counter() - t1
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    meta_launches = {k: launches[k] - before[k] for k in launches}
+    probs = _class_probs(se, fr)
+    row_err = float((probs.sum(1) - 1).abs().max())
+    m = se.output.training_metrics
+    out = dict(rows=fr.nrow, train_s=train_s, walls=walls,
+               launches=launches, metalearner_launches=meta_launches,
+               level_one_cols=len(se.metalearner.output.names),
+               cv_logloss={b.algo_name: b.output.cross_validation_metrics
+                           .logloss for b in bases},
+               logloss=m.logloss, mean_per_class_error=m.mean_per_class_error,
+               row_sum_err=row_err)
+    print("ensemble_covtype", json.dumps(out), flush=True)
+    _check(len(se.metalearner.output.names) == 21,
+           "ensemble_covtype: level-one columns")
+    _check(bool(torch.isfinite(probs).all()) and row_err <= 1e-5,
+           f"ensemble_covtype: probabilities (row sums off by {row_err})")
+    _check(np.isfinite(m.logloss), f"ensemble_covtype: logloss {m.logloss}")
+    _check(launches["flat"] + launches["grouped"] > 0
+           and meta_launches["gram"] > 0
+           and meta_launches["flat"] + meta_launches["grouped"] == 0,
+           f"ensemble_covtype: launches {launches}, metalearner "
+           f"{meta_launches}")
+    del se, bases, probs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_automl_card_vs_cpu(dev) -> dict:
+    """AUTOML_CPU_ROWS HIGGS rows through ``automl.small_plan`` (10 trees
+    at depth 4, XGBoost included, a DeepLearning of three 10-unit layers)
+    with 3 folds on
+    the card and on the CPU: the same steps, the same grid combos, every
+    model's leaderboard metrics (auc, logloss, rmse) within 1e-4; every
+    ensemble's metalearner coefficients within 1e-4 x max(1, |beta|) and
+    its predictions within 1e-4 (with the largest difference of its
+    level-one columns printed); the leaders' predictions within 1e-4; and
+    the multinomial GLM on AUTOML_CPU_ROWS covertype rows: coefficients
+    within 1e-4 x max(1, |beta|), logloss within 1e-5. Returns the card's
+    launches."""
+    import torch
+
+    from h2o_tpu_torch import H2OAutoML
+    from h2o_tpu_torch.models import automl
+
+    runs, launches = [], None
+    for d in (dev, "cpu"):
+        fr = _higgs_frame(AUTOML_CPU_ROWS, d)
+        if d is dev:
+            _reset_counts()
+        t0 = time.perf_counter()
+        aml = H2OAutoML(max_models=7, nfolds=3, seed=42,
+                        modeling_plan=automl.small_plan(
+                            ntrees=10, max_depth=4, hidden=(10, 10, 10),
+                            xgboost=True))
+        aml.train(y="response", training_frame=fr)
+        if d is dev:
+            torch.cuda.synchronize()
+            launches = _counts()
+        runs.append((aml, fr, time.perf_counter() - t0))
+    (ca, cfr, c_s), (ha, hfr, h_s) = runs
+
+    cs, hs = automl.models_by_step(ca), automl.models_by_step(ha)
+    _check([lb for lb, _ in cs] == [lb for lb, _ in hs] and len(cs) == 9,
+           f"automl_card_vs_cpu: steps {[lb for lb, _ in cs]} vs "
+           f"{[lb for lb, _ in hs]}")
+    grid_params = [[(m.params.max_depth, m.params.learn_rate)
+                    for lb, m in s if lb == "GBM_grid_1"] for s in (cs, hs)]
+    _check(grid_params[0] == grid_params[1],
+           f"automl_card_vs_cpu: grid combos {grid_params}")
+    err = 0.0
+    for (lb, cm), (_lb, hm) in zip(cs, hs):
+        for name in ("auc", "logloss", "rmse"):
+            a = ca.leaderboard._metric(cm, name)
+            b = ha.leaderboard._metric(hm, name)
+            err = max(err, abs(a - b))
+    ens = {}
+    for (lb, cm), (_lb, hm) in zip(cs, hs):
+        if lb.startswith("StackedEnsemble"):
+            cb, hb = cm.metalearner.beta, hm.metalearner.beta
+            l1 = [m.metalearner.params.training_frame for m in (cm, hm)]
+            ens[lb] = dict(
+                level_one_err=max(float((a.data[:l1[1].nrow].cpu() - b.data[
+                    :l1[1].nrow]).abs().max()) for a, b in zip(
+                        l1[0].vecs[:-1], l1[1].vecs[:-1])),
+                coef_rel=float(np.max(np.abs(cb - hb)
+                                      / np.maximum(1.0, np.abs(hb)))),
+                pred_err=float((cm.predict(cfr).vec(2).data[:cfr.nrow].cpu()
+                                - hm.predict(hfr).vec(2).data[:hfr.nrow])
+                               .abs().max()))
+    pc = ca.predict(cfr).vec(2).data[:cfr.nrow].cpu()
+    ph = ha.predict(hfr).vec(2).data[:hfr.nrow]
+    pred_err = float((pc - ph).abs().max())
+    mg = {d: _multinomial_glm(_covtype_frame(AUTOML_CPU_ROWS, d))
+          for d in (dev, "cpu")}
+    hb = np.asarray(mg["cpu"].beta)
+    mg_coef = float(np.max(np.abs(mg[dev].beta - hb)
+                           / np.maximum(1.0, np.abs(hb))))
+    mg_ll = abs(mg[dev].output.training_metrics.logloss
+                - mg["cpu"].output.training_metrics.logloss)
+    out = dict(rows=AUTOML_CPU_ROWS, card_s=c_s, cpu_s=h_s,
+               steps=[lb for lb, _ in cs], grid=grid_params[0],
+               launches=launches, max_metric_err=err, ensembles=ens,
+               leader=[ca.leader.key, ha.leader.key],
+               leader_pred_err=pred_err, multinomial_coef_rel=mg_coef,
+               multinomial_logloss_err=mg_ll)
+    print("automl_card_vs_cpu", json.dumps(out), flush=True)
+    _check(err <= 1e-4, f"automl_card_vs_cpu: metrics off by {err}")
+    for lb, e in ens.items():
+        _check(e["coef_rel"] <= 1e-4 and e["pred_err"] <= 1e-4,
+               f"automl_card_vs_cpu: {lb}: coefficients off by "
+               f"{e['coef_rel']}, predictions by {e['pred_err']}")
+    _check(pred_err <= 1e-4,
+           f"automl_card_vs_cpu: leader predictions off by {pred_err}")
+    _check(mg_coef <= 1e-4 and mg_ll <= 1e-5,
+           f"automl_card_vs_cpu: multinomial GLM coefficients {mg_coef}, "
+           f"logloss {mg_ll}")
+    del runs, ca, ha, cfr, hfr, mg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grid_recovery(dev) -> int:
+    """A 4-combo random GBM grid on GRID_ROWS HIGGS rows with
+    ``recovery_dir``, killed at its third manifest write (the
+    ``persist.checkpoint`` failpoint, between the temp write and the
+    rename: the second model's file is on disk, the manifest names one),
+    resumed with ``GridSearch.resume``: the resumed grid's models equal the
+    uninterrupted grid's, forests and predictions bit for bit, in the same
+    walk order. Then the grid again with ``parallelism=2``, two builds at
+    a time on the card from two threads: its models bit-equal to the
+    sequential grid's, combo for combo, and its flat launches, counted
+    under ``COUNT_LOCK`` from both threads, equal to the sequential
+    grid's (the sum over its four models). Prints the walls. Returns the
+    flat launches of the four runs and the resume."""
+    import shutil
+
+    import torch
+
+    from h2o_tpu_torch import (GBM, GBMParameters, GridSearch,
+                               SearchCriteria)
+    from h2o_tpu_torch.utils import failpoints
+
+    fr = _higgs_frame(GRID_ROWS, dev)
+    params = GBMParameters(training_frame=fr, response_column="response",
+                           ntrees=5, seed=42, sample_rate=0.8)
+    hyper = {"max_depth": [4, 6], "learn_rate": [0.1, 0.2]}
+    crit = dict(strategy="RandomDiscrete", seed=7)
+    rdir = os.path.join(DATA_DIR, "grid_recovery")
+    shutil.rmtree(rdir, ignore_errors=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    full = GridSearch(GBM, params, hyper, SearchCriteria(**crit)).train()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    seq_flat = _counts()["flat"]
+    failpoints.arm("persist.checkpoint", "raise(preempt)@3")
+    t0 = time.perf_counter()
+    try:
+        GridSearch(GBM, params, hyper, SearchCriteria(**crit),
+                   recovery_dir=rdir).train()
+        killed = False
+    except failpoints.InjectedFault:
+        killed = True
+    finally:
+        failpoints.reset()
+    killed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gs = GridSearch.resume(rdir, device=dev)
+    recovered = len(gs._recovered_models)
+    resumed = gs.train()
+    resume_s = time.perf_counter() - t0
+    launches = _counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    par = GridSearch(GBM, params, hyper, SearchCriteria(**crit),
+                     parallelism=2).train()
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t0
+    par_flat = _counts()["flat"]
+
+    def combo(m):
+        return (m.params.max_depth, m.params.learn_rate)
+
+    def equal(xs, ys):
+        return [combo(m) for m in xs] == [combo(m) for m in ys] and all(
+            _forests_bit_equal(a, b) and torch.equal(
+                a.predict(fr).vec(2).data, b.predict(fr).vec(2).data)
+            for a, b in zip(xs, ys))
+    same = equal(full.models, resumed.models)
+    par_same = equal(sorted(full.models, key=combo),
+                     sorted(par.models, key=combo))
+    out = dict(rows=GRID_ROWS, full_s=full_s, killed_s=killed_s,
+               resume_s=resume_s, parallel_s=par_s, recovered=recovered,
+               models=[combo(m) for m in resumed.models], launches=launches,
+               bit_equal=same, sequential_flat=seq_flat,
+               parallel_flat=par_flat, parallel_bit_equal=par_same)
+    print("grid_recovery", json.dumps(out), flush=True)
+    shutil.rmtree(rdir, ignore_errors=True)
+    _check(killed and recovered == 1,
+           f"grid_recovery: killed {killed}, {recovered} models recovered")
+    _check(resumed.model_count == full.model_count == 4 and same,
+           "grid_recovery: the resumed grid differs from the uninterrupted "
+           "one")
+    _check(par.model_count == 4 and par_same,
+           "grid_recovery: the parallelism=2 grid differs from the "
+           "sequential one")
+    _check(par_flat == seq_flat > 0,
+           f"grid_recovery: parallelism=2 made {par_flat} flat launches, "
+           f"the sequential grid {seq_flat}")
+    return launches["flat"] + par_flat
+
+
 def main() -> int:
     import torch
 
@@ -2790,6 +3354,19 @@ def main() -> int:
     run("recovery_dl", lambda d: phase_recovery_dl(d, mnist))
     del mnist
     run("unsupervised_card_vs_cpu", phase_unsupervised_card_vs_cpu)
+    automl_launches, deep_levels = run("automl_higgs", phase_automl_higgs)
+    t0 = time.perf_counter()
+    cov = _covtype_frame(COVTYPE_ROWS, dev)
+    print(f"covtype frame {COVTYPE_ROWS}x54: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    mglm_launches, gram_at_block = run(
+        "glm_multinomial_covtype",
+        lambda d: phase_glm_multinomial_covtype(d, cov))
+    ens_launches = run("ensemble_covtype",
+                       lambda d: phase_ensemble_covtype(d, cov))
+    del cov
+    cvc_launches = run("automl_card_vs_cpu", phase_automl_card_vs_cpu)
+    grid_launches = run("grid_recovery", phase_grid_recovery)
     print("phase_s", json.dumps(phases), flush=True)
     # the covertype path's numbers join the entry of the wrapper its plan
     # picks: its launches, and its three levels' sums
@@ -2803,14 +3380,25 @@ def main() -> int:
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         per_level_ms=[r["ms"] for r in levels], bound_by="bytes")
     paths = {"level_hist": dict(train=launches, xgboost_train=xgb_launches,
-                                checkpoint_higgs=ckpt_launches),
+                                checkpoint_higgs=ckpt_launches,
+                                automl_higgs=automl_launches["flat"],
+                                ensemble_covtype=ens_launches["flat"],
+                                automl_card_vs_cpu=cvc_launches["flat"],
+                                grid_recovery=grid_launches),
              "level_hist_grouped": dict(airlines_train=grouped_launches,
                                         import_cv_gbm=cv_gbm_launches,
                                         compress_airlines=cmp_launches),
              "gram": dict(glm_train=gram_launches,
                           xgboost_gblinear=gblinear_launches,
                           import_cv_glm=cv_glm_launches,
-                          pca_mnist=pca_launches)}
+                          pca_mnist=pca_launches,
+                          automl_higgs=automl_launches["gram"],
+                          glm_multinomial_covtype=mglm_launches,
+                          ensemble_covtype=ens_launches["gram"],
+                          automl_card_vs_cpu=cvc_launches["gram"])}
+    if ens_launches["grouped"]:
+        paths["level_hist_grouped"]["ensemble_covtype"] = \
+            ens_launches["grouped"]
     cov_entry = ("level_hist" if covtype["wrapper"] == "flat"
                  else "level_hist_grouped")
     paths[cov_entry].update(cov_nums["launches_by_path"])
@@ -2834,6 +3422,11 @@ def main() -> int:
             e["covtype"] = cov_nums
         if name == "level_hist":
             e["higgs_depth6"] = flat["depth6"]
+            # GBM def_5's levels of 8,192 nodes and more, on its own
+            # inputs (automl_higgs)
+            e["automl_deep_levels"] = deep_levels
+            e["max_abs_err"] = max([e["max_abs_err"]] + [
+                r["max_abs_err"] for r in deep_levels.values()])
         if name == "level_hist_grouped":
             e["import_cv_gbm_levels"] = hist_at_path
             e["max_abs_err"] = max(e["max_abs_err"],
@@ -2843,9 +3436,13 @@ def main() -> int:
             e["pca_mnist_shape"] = {k: gram_at_pca[k] for k in (
                 "rows", "cols", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}
+            e["multinomial_block_shape"] = {k: gram_at_block[k] for k in (
+                "rows", "cols", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
             e["max_abs_err"] = max(e["max_abs_err"],
                                    gram_at_path["max_abs_err"],
-                                   gram_at_pca["max_abs_err"])
+                                   gram_at_pca["max_abs_err"],
+                                   gram_at_block["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,12 @@ small solves on the host. Unsupervised and neural models: DeepLearning
 optax's ADADELTA and momentum SGD written out, the reference's init,
 shuffle and dropout streams), KMeans (``models/kmeans.py``) and PCA/SVD
 (``models/pca.py``: GramSVD through the Gram kernel, Power, Randomized).
+Model search: the multinomial GLM (per-class block IRLS over the Gram
+kernel), ``GridSearch`` (Cartesian and RandomDiscrete walks, budgets,
+early stopping, ``parallelism``, recovery, export and import),
+``StackedEnsemble`` (CV stacking or blending, every metalearner),
+``H2OAutoML`` (the reference's default plan, leaderboard and event log)
+and ``partial_dependence``/``permutation_varimp``.
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -51,12 +57,18 @@ from .frame.frame import Frame
 from .frame.split import split_frame
 from .frame.vec import Vec
 from .io.parser import ParseSetup, import_file
+from .models.automl import H2OAutoML, Leaderboard
 from .models.deeplearning import (DeepLearning, DeepLearningModel,
                                   DeepLearningParameters)
 from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
                          XRTParameters)
 from .models.gbm import GBM, GBMModel, GBMParameters
-from .models.glm import GLM, GLMModel, GLMParameters
+from .models.ensemble import (StackedEnsemble, StackedEnsembleModel,
+                              StackedEnsembleParameters)
+from .models.explain import partial_dependence, permutation_varimp
+from .models.glm import GLM, GLMModel, GLMMultinomialModel, GLMParameters
+from .models.grid import (Grid, GridSearch, SearchCriteria, export_grid,
+                          import_grid)
 from .models.kmeans import KMeans, KMeansModel, KMeansParameters
 from .models.model_base import resume_training
 from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
@@ -71,4 +83,8 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "load_model", "resume_training", "DeepLearning",
            "DeepLearningModel", "DeepLearningParameters", "KMeans",
            "KMeansModel", "KMeansParameters", "PCA", "PCAModel",
-           "PCAParameters", "SVD", "SVDModel", "SVDParameters"]
+           "PCAParameters", "SVD", "SVDModel", "SVDParameters",
+           "GLMMultinomialModel", "Grid", "GridSearch", "SearchCriteria",
+           "export_grid", "import_grid", "StackedEnsemble",
+           "StackedEnsembleModel", "StackedEnsembleParameters", "H2OAutoML",
+           "Leaderboard", "partial_dependence", "permutation_varimp"]

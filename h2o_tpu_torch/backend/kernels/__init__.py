@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
+#: guards the wrappers' launch counters: concurrent builds on one card
+#: (a grid's ``parallelism``) launch from several threads, and ``+= 1`` on
+#: a module global is a read-modify-write
+COUNT_LOCK = threading.Lock()
 #: nvcc's output (ptxas register/shared-memory report) of the last build
 #: this process ran; empty when the library was already built
 BUILD_LOG = ""

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check, load_library
+from . import COUNT_LOCK, check, load_library
 
 #: launches of the kernel in this process — one per ``gram_accumulate`` call
 #: on the card (the kernel's two internal launches count once); a plain
@@ -144,7 +144,8 @@ def _cuda_gram(X, W, z):
                           chunk_rows, partial.data_ptr(), G.data_ptr(),
                           None if b is None else b.data_ptr(), stream)
     check(lib, rc, "gram")
-    GRAM_LAUNCHES += 1
+    with COUNT_LOCK:
+        GRAM_LAUNCHES += 1
     return G, b
 
 

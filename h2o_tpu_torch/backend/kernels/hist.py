@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check, load_library
+from . import COUNT_LOCK, check, load_library
 
 #: launches of the kernel through the flat wrapper in this process — a plain
 #: counter a run reads to show its main path went through the kernel
@@ -328,7 +328,8 @@ def _cuda_flat(Xb, lc, vv, n_lv: int, nbins_tot: int) -> torch.Tensor:
     F, V = Xb.shape[1], vv.shape[1]
     feats, n_cells = _flat_feats(F, n_lv, nbins_tot, V)
     out = _launch(Xb, lc, vv, n_lv, nbins_tot - 1, feats, n_cells)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out.view(F, n_lv, nbins_tot, V)
 
 
@@ -341,7 +342,8 @@ def _cuda_grouped(Xb, lc, vv, groups, n_lv: int, na_global: int) -> tuple:
     feats, shapes, n_cells = _grouped_feats(Xb.shape[1], groups, n_lv,
                                             vv.shape[1])
     out = _launch(Xb, lc, vv, n_lv, na_global, feats, n_cells)
-    GROUPED_LAUNCHES += 1
+    with COUNT_LOCK:
+        GROUPED_LAUNCHES += 1
     views, s = [], 0
     for shp in shapes:
         n = shp[0] * shp[1] * shp[2] * shp[3]

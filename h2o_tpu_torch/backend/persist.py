@@ -289,6 +289,10 @@ class Recovery:
         atomic_write_bytes(self._manifest_path(),
                            json.dumps(manifest).encode())
 
+    def model_path(self, i: int) -> str:
+        """Where a grid search's recovery keeps its ``i``-th model."""
+        return os.path.join(self.dir, f"model_{i}.bin")
+
 
 class TrainingRecovery:
     """Periodic atomic checkpoints of a running training job, so a

@@ -16,9 +16,23 @@ import torch
 EPS = 1e-10
 
 
+def _exp(x):
+    """``torch.exp`` in float64, rounded once to ``x``'s type. The card's
+    float32 exp and the CPU's differ in the last bit on some inputs, and a
+    gradient one bit apart can tip a near-tied split; both round the
+    float64 value alike."""
+    return torch.exp(x.double()).to(x.dtype)
+
+
+def _log(x):
+    """``torch.log`` in float64, rounded once to ``x``'s type (see
+    ``_exp``)."""
+    return torch.log(x.double()).to(x.dtype)
+
+
 def _sigmoid(f):
     # the reference's formula, not torch.sigmoid, so both round alike
-    return 1.0 / (1.0 + torch.exp(-f))
+    return 1.0 / (1.0 + _exp(-f))
 
 
 def _nanquantile(a: torch.Tensor, q: float, midpoint: bool = False):
@@ -88,7 +102,7 @@ class Bernoulli(Distribution):
 
     def link(self, mu):
         mu = torch.clamp(mu, EPS, 1 - EPS)
-        return torch.log(mu / (1 - mu))
+        return _log(mu / (1 - mu))
 
     def linkinv(self, f):
         return _sigmoid(f)
@@ -102,7 +116,7 @@ class Bernoulli(Distribution):
 
     def deviance(self, y, f, w):
         p = torch.clamp(_sigmoid(f), EPS, 1 - EPS)
-        return -2 * w * (y * torch.log(p) + (1 - y) * torch.log(1 - p))
+        return -2 * w * (y * _log(p) + (1 - y) * _log(1 - p))
 
 
 class Quasibinomial(Bernoulli):
@@ -129,40 +143,40 @@ class Poisson(Distribution):
     name = "poisson"
 
     def link(self, mu):
-        return torch.log(torch.clamp(mu, min=EPS))
+        return _log(torch.clamp(mu, min=EPS))
 
     def linkinv(self, f):
-        return torch.exp(f)
+        return _exp(f)
 
     def gradient(self, y, f, w):
-        return w * (torch.exp(f) - y)
+        return w * (_exp(f) - y)
 
     def hessian(self, y, f, w):
-        return w * torch.exp(f)
+        return w * _exp(f)
 
     def deviance(self, y, f, w):
-        mu = torch.exp(f)
-        return 2 * w * (y * torch.log(torch.clamp(y, min=EPS) / mu) - (y - mu))
+        mu = _exp(f)
+        return 2 * w * (y * _log(torch.clamp(y, min=EPS) / mu) - (y - mu))
 
 
 class Gamma(Distribution):
     name = "gamma"
 
     def link(self, mu):
-        return torch.log(torch.clamp(mu, min=EPS))
+        return _log(torch.clamp(mu, min=EPS))
 
     def linkinv(self, f):
-        return torch.exp(f)
+        return _exp(f)
 
     def gradient(self, y, f, w):
-        return w * (1.0 - y * torch.exp(-f))
+        return w * (1.0 - y * _exp(-f))
 
     def hessian(self, y, f, w):
-        return w * y * torch.exp(-f)
+        return w * y * _exp(-f)
 
     def deviance(self, y, f, w):
-        mu = torch.exp(f)
-        return 2 * w * (-torch.log(torch.clamp(y, min=EPS) / mu)
+        mu = _exp(f)
+        return 2 * w * (-_log(torch.clamp(y, min=EPS) / mu)
                         + (y - mu) / mu)
 
 
@@ -176,23 +190,23 @@ class Tweedie(Distribution):
         self.p = tweedie_power
 
     def link(self, mu):
-        return torch.log(torch.clamp(mu, min=EPS))
+        return _log(torch.clamp(mu, min=EPS))
 
     def linkinv(self, f):
-        return torch.exp(f)
+        return _exp(f)
 
     def gradient(self, y, f, w):
         p = self.p
-        return w * (-y * torch.exp(f * (1 - p)) + torch.exp(f * (2 - p)))
+        return w * (-y * _exp(f * (1 - p)) + _exp(f * (2 - p)))
 
     def hessian(self, y, f, w):
         p = self.p
-        return w * (-y * (1 - p) * torch.exp(f * (1 - p))
-                    + (2 - p) * torch.exp(f * (2 - p)))
+        return w * (-y * (1 - p) * _exp(f * (1 - p))
+                    + (2 - p) * _exp(f * (2 - p)))
 
     def deviance(self, y, f, w):
         p = self.p
-        mu = torch.exp(f)
+        mu = _exp(f)
         yp = torch.clamp(y, min=0.0)
         return 2 * w * (torch.pow(yp, 2 - p) / ((1 - p) * (2 - p))
                         - y * torch.pow(mu, 1 - p) / (1 - p)
@@ -275,24 +289,24 @@ class NegativeBinomial(Distribution):
         self.theta = theta
 
     def link(self, mu):
-        return torch.log(torch.clamp(mu, min=EPS))
+        return _log(torch.clamp(mu, min=EPS))
 
     def linkinv(self, f):
-        return torch.exp(f)
+        return _exp(f)
 
     def gradient(self, y, f, w):
-        mu = torch.exp(f)
+        mu = _exp(f)
         return w * (mu * (1 + self.theta * y) / (1 + self.theta * mu) - y)
 
     def hessian(self, y, f, w):
-        mu = torch.exp(f)
+        mu = _exp(f)
         return w * mu * (1 + self.theta * y) / (1 + self.theta * mu) ** 2
 
     def deviance(self, y, f, w):
-        mu = torch.exp(f)
+        mu = _exp(f)
         t = 1.0 / self.theta
-        return 2 * w * (y * torch.log(torch.clamp(y, min=EPS) / mu)
-                        - (y + t) * torch.log((y + t) / (mu + t)))
+        return 2 * w * (y * _log(torch.clamp(y, min=EPS) / mu)
+                        - (y + t) * _log((y + t) / (mu + t)))
 
 
 _REGISTRY = {c.name: c for c in (

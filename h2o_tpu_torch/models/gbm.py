@@ -50,8 +50,8 @@ from ..frame.vec import Vec
 from ..parallel.mesh import resolve_device
 from ..utils import failpoints, threefry
 from ..utils.log import info
-from .distributions import (Bernoulli, Gaussian, Multinomial, _sigmoid,
-                            get_distribution)
+from .distributions import (Bernoulli, Gaussian, Multinomial, _exp,
+                            _sigmoid, get_distribution)
 from .metrics import make_metrics
 from .model_base import Model, ModelBuilder, ModelOutput, Parameters
 from .tree.binning import compute_bin_edges_cols
@@ -139,7 +139,7 @@ class GBMModel(Model):
     @classmethod
     def from_reference(cls, forest, f0, edges, names, domains, cfg_fields, *,
                        category: str = "Binomial", response_domain=None,
-                       device=None) -> "GBMModel":
+                       cat_nedges=None, device=None) -> "GBMModel":
         """Carry a JAX-trained tree model over: ``forest`` is the
         reference's forest dict (``feat, thr, nanL, val, gain, catd`` as
         numpy arrays in the ``gbm.py:_assemble_forest`` layout, (T, K, N) for
@@ -148,13 +148,20 @@ class GBMModel(Model):
         ``cfg_fields`` its TreeConfig fields (``drf_mode`` marks a DRF or
         XRT forest). The model's ``is_cat`` (the features with a domain) and
         ``cat_nedges`` (each edge row's cut count) follow from these as in
-        the reference's build. The port model scores the same rows as the
-        reference model."""
+        the reference's build. A reference model keeps no edges: with
+        ``edges`` None, ``cat_nedges`` comes from the reference model's own
+        (the model scores; a checkpoint continuation from it takes the raw
+        replay). The port model scores the same rows as the reference
+        model."""
         cfg = TreeConfig(**{k: v for k, v in dict(cfg_fields).items()
                             if k not in _JAX_ONLY_CFG})
         cfg.check_supported()
         dev = resolve_device(device)
-        edges = np.asarray(edges, np.float32)
+        if edges is not None:
+            edges = np.asarray(edges, np.float32)
+            cat_nedges = (~np.isnan(edges)).sum(axis=1).astype(np.int32)
+        elif cat_nedges is not None:
+            cat_nedges = np.asarray(cat_nedges, np.int32)
         is_cat = np.array([domains.get(n) is not None for n in names])
         dtypes = dict(feat=np.int32, thr=np.float32, nanL=np.bool_,
                       val=np.float32, gain=np.float32, catd=np.float32)
@@ -177,7 +184,7 @@ class GBMModel(Model):
                                max_depth=cfg.max_depth)
         f0_t = torch.from_numpy(np.array(f0, np.float32)).to(dev)
         return cls(params, output, ft, f0_t, dist, cfg, is_cat, edges=edges,
-                   cat_nedges=(~np.isnan(edges)).sum(axis=1).astype(np.int32))
+                   cat_nedges=cat_nedges)
 
     def _raw_f(self, X) -> torch.Tensor:
         """f0 plus the summed trees: (R,), or (R, K); DRF averages them."""
@@ -240,9 +247,11 @@ class GBMModel(Model):
 
 
 def _softmax(f, dim: int) -> torch.Tensor:
-    """``jax.nn.softmax``'s formula, so both packages round alike."""
-    e = torch.exp(f - torch.amax(f, dim=dim, keepdim=True))
-    return e / torch.sum(e, dim=dim, keepdim=True)
+    """``jax.nn.softmax``'s formula, so both packages round alike; the exp
+    and the class sum in float64, each rounded once, so the card and the
+    CPU round alike too."""
+    e = _exp(f - torch.amax(f, dim=dim, keepdim=True))
+    return e / e.double().sum(dim=dim, keepdim=True).to(e.dtype)
 
 
 def _metrics_raw(category, dist, f, drf_mode: bool, ntrees: int):

@@ -1,6 +1,7 @@
 """GLM — generalized linear models via Gram + IRLS (``h2o_tpu/models/glm.py``),
 single-block families through the IRLSM and COORDINATE_DESCENT solvers,
-with and without ``lambda_search``.
+with and without ``lambda_search``, and the multinomial family as the
+reference's per-class block IRLS (``GLM._build_multinomial``).
 
 The expensive part of every IRLS iteration — XᵀWX and XᵀWz over the (R, P+1)
 design with its intercept column — is one call of the Gram kernel
@@ -10,7 +11,7 @@ plain ``torch.matmul``, as the reference leaves it to XLA. The small P×P
 solve runs on the host, as in the reference (`hex/glm/GLM.java:1743`): ADMM
 over the Cholesky-like inverse in float64, or Gauss-Seidel coordinate
 descent in float32. Families: gaussian, binomial, quasibinomial, poisson,
-gamma, tweedie, negativebinomial. Multinomial, ordinal, HGLM, interactions,
+gamma, tweedie, negativebinomial, multinomial. Ordinal, HGLM, interactions,
 constraints, p-values, L-BFGS, feature parallelism, alpha arrays and ``ml``
 dispersion raise ``NotImplementedError`` naming ROADMAP Queue 1 item 8.
 
@@ -387,7 +388,8 @@ class GLMParameters(Parameters):
 
 def _destandardize(beta: np.ndarray, di) -> np.ndarray:
     """Map coefficients from the standardized training scale back to the
-    original feature scale: b → b/s, intercept → intercept − Σ b·m/s."""
+    original feature scale: b → b/s, intercept → intercept − Σ b·m/s.
+    Accepts (P+1,) or multinomial (K, P+1) [classes × coefs, intercept last]."""
     beta = beta.copy()
     if not (di.standardize or di.effective_center):
         return beta
@@ -427,19 +429,24 @@ class GLMModel(Model):
         di = DataInfo.carried(ref.dinfo)
         fam = ref.family
         cls = _FAMILIES.get(fam.name)
-        if cls is None:
-            raise NotImplementedError(f"{fam.name} GLMs are not ported yet "
+        kind = type(ref).__name__
+        if cls is None or kind not in ("GLMModel", "GLMMultinomialModel"):
+            what = fam.name if cls is None else kind
+            raise NotImplementedError(f"{what} GLMs are not ported yet "
                                       f"({_TODO})")
         powers = dict(tweedie_variance_power=getattr(fam, "p", 1.5),
                       theta=getattr(fam, "theta", 1.0))
         family = cls(fam.link_name, **powers)
         out = ModelOutput.carried(ref.output)
-        params = GLMParameters(family=fam.name, link=fam.link_name,
+        multi = kind == "GLMMultinomialModel"
+        params = GLMParameters(family="multinomial" if multi else fam.name,
+                               link=fam.link_name,
                                standardize=di.standardize,
                                missing_values_handling=di.missing_values_handling,
                                **powers)
-        return GLMModel(params, out, di,
-                        np.asarray(ref.beta, np.float64).copy(), family)
+        model_cls = GLMMultinomialModel if multi else GLMModel
+        return model_cls(params, out, di,
+                         np.asarray(ref.beta, np.float64).copy(), family)
 
     def coef(self) -> dict:
         """Coefficients on the ORIGINAL feature scale
@@ -479,7 +486,7 @@ class GLM(ModelBuilder):
         p = self.params
         fam = (p.family or "AUTO").lower()
         refusals = (
-            (fam in ("multinomial", "ordinal"), f"the {fam} family"),
+            (fam == "ordinal", "the ordinal family"),
             (p.HGLM, "HGLM"),
             (p.interactions or p.interaction_pairs, "interactions"),
             (p.beta_constraints is not None, "beta_constraints"),
@@ -499,11 +506,12 @@ class GLM(ModelBuilder):
     def _family(self, category) -> Family:
         p = self.params
         name = (p.family or "AUTO").lower()
-        if category == "Multinomial":
-            raise NotImplementedError(f"glm: the multinomial family is not "
-                                      f"ported yet ({_TODO})")
         if name == "auto":
-            name = {"Binomial": "binomial", "Regression": "gaussian"}[category]
+            name = {"Binomial": "binomial", "Multinomial": "multinomial",
+                    "Regression": "gaussian"}[category]
+        if name == "multinomial":
+            return BinomialF(p.link if p.link not in (None, "family_default")
+                             else None)
         cls = _FAMILIES.get(name)
         if cls is None:
             raise ValueError(f"unsupported GLM family '{name}'")
@@ -516,6 +524,8 @@ class GLM(ModelBuilder):
         fr = p.training_frame
         names = self.feature_names()
         y_dev, category, resp_domain = self.response_info()
+        if category == "Multinomial":
+            return self._build_multinomial(job, names, y_dev, resp_domain)
         family = self._family(category)
 
         dinfo = DataInfo.make(fr, names, standardize=p.standardize,
@@ -610,12 +620,18 @@ class GLM(ModelBuilder):
         dev_path_prev = None
         admm_state: dict = {}  # (z, u) warm start across IRLS/path solves
         for lam in lambdas:
+            if job is not None:
+                job.check_cancelled()
+                if best is not None and job.time_exceeded():
+                    break   # keep the best-so-far lambda (partial path)
             l1 = alpha * lam * neff
             l2 = (1 - alpha) * lam * neff
             dev_final = None
-            for _it in range(max(p.max_iterations, 1)):
+            for it in range(max(p.max_iterations, 1)):
                 if job is not None:
                     job.check_cancelled()
+                    if it and job.time_exceeded():
+                        break
                 G, b, dev, _ = step(Xi, y, w, on_dev(beta), offset)
                 iters_total += 1
                 Gn = G.cpu().numpy().astype(np.float64)
@@ -651,6 +667,69 @@ class GLM(ModelBuilder):
         beta, lam, dev = best
         return beta, lam, dev, nulldev, neff, iters_total
 
+    # -- multinomial (`hex/glm/GLM.java` multinomial loop) --------------------
+    def _build_multinomial(self, job, names, y_dev, resp_domain):
+        """Per-class block IRLS, the reference's: each class's block is a
+        binomial IRLS whose offset is minus the log-sum-exp of the other
+        classes' linear predictors (the softmax's block coordinate), three
+        IRLS steps a class and ``max(2, min(6, max_iterations // 5))``
+        sweeps over the classes. Every step is one ``gram_accumulate``
+        call, so on the card each is one launch of the Gram kernel. As in
+        the reference, ``lambda_search`` and ``non_negative`` do not act on
+        this family and no validation metrics are kept (ROADMAP Queue 3)."""
+        p = self.params
+        fr = p.training_frame
+        K = len(resp_domain)
+        dinfo = DataInfo.make(
+            fr, names, standardize=p.standardize,
+            missing_values_handling=p.missing_values_handling)
+        Xi, okrow = dinfo.expand(fr, intercept=True)
+        y = torch.nan_to_num(y_dev)
+        w = (~torch.isnan(y_dev)).to(torch.float32) * okrow.to(torch.float32)
+        if p.weights_column:
+            w = w * torch.nan_to_num(fr.vec(p.weights_column).data)
+        P = Xi.shape[1] - 1
+        betas = np.zeros((K, P + 1), dtype=np.float64)
+        family = BinomialF()
+        step = _make_irls_kernel(family)
+        free = np.zeros(P + 1, dtype=bool)
+        free[-1] = True
+        alpha = p.alpha if p.alpha is not None else 0.5
+        lam = p.lambda_ or 0.0
+        neff = float(torch.sum(w))
+        classes = torch.arange(K, device=Xi.device)
+        sweeps = max(2, min(6, p.max_iterations // 5))
+        for _ in range(sweeps):
+            job.check_cancelled()
+            for k in range(K):
+                eta_all = Xi @ torch.from_numpy(betas.T.astype(np.float32)
+                                                ).to(Xi.device)     # (R, K)
+                off = torch.logsumexp(eta_all.masked_fill(
+                    classes[None, :] == k, -torch.inf), dim=1)
+                yk = (y == k).to(torch.float32)
+                bk = betas[k].copy()
+                for _ in range(3):
+                    G, b, _dev, _ = step(
+                        Xi, yk, w, torch.from_numpy(bk.astype(np.float32)
+                                                    ).to(Xi.device), -off)
+                    bk = _admm_solve(G.cpu().numpy().astype(np.float64),
+                                     b.cpu().numpy().astype(np.float64),
+                                     alpha * lam * neff,
+                                     (1 - alpha) * lam * neff, free)
+                betas[k] = bk
+        output = ModelOutput()
+        output.names = names
+        output.domains = {n: fr.vec(n).domain for n in names}
+        output.response_domain = list(resp_domain)
+        output.model_category = "Multinomial"
+        model = GLMMultinomialModel(p, output, dinfo, betas, family)
+        raw = model.score0(Xi[:, :P])
+        ym = torch.where(w > 0, y, torch.nan)
+        output.training_metrics = make_metrics(
+            "Multinomial", ym, raw, w if p.weights_column else None,
+            auc_type=p.auc_type, domain=output.response_domain)
+        return model
+
     def _varimp_from_beta(self, dinfo, beta):
         mag = np.abs(np.asarray(beta)[:-1])
         if mag.sum() <= 0:
@@ -660,3 +739,33 @@ class GLM(ModelBuilder):
                 "relative_importance": mag[order],
                 "scaled_importance": mag[order] / mag.max(),
                 "percentage": mag[order] / mag.sum()}
+
+
+class GLMMultinomialModel(GLMModel):
+    """A multinomial GLM: ``beta`` is (K, P+1), one row per class, the
+    intercept last; scores are the softmax of the K linear predictors."""
+
+    def coef(self) -> dict:
+        """Per-class coefficient maps — h2o-py's coef() multinomial shape:
+        {class_name: {coef_name: value}} on the original feature scale."""
+        names = self.dinfo.expanded_names + ["Intercept"]
+        B = _destandardize(np.asarray(self.beta, dtype=np.float64),
+                           self.dinfo)
+        classes = self.output.response_domain or [
+            str(k) for k in range(B.shape[0])]
+        return {str(c): dict(zip(names, B[k])) for k, c in enumerate(classes)}
+
+    def coef_norm(self) -> dict:
+        names = self.dinfo.expanded_names + ["Intercept"]
+        B = np.asarray(self.beta)
+        classes = self.output.response_domain or [
+            str(k) for k in range(B.shape[0])]
+        return {str(c): dict(zip(names, B[k])) for k, c in enumerate(classes)}
+
+    def score0(self, X: torch.Tensor) -> torch.Tensor:
+        B = torch.as_tensor(self.beta, dtype=torch.float32,
+                            device=X.device)            # (K, P+1)
+        eta = X @ B[:, :-1].T + B[:, -1][None, :]
+        probs = torch.softmax(eta, dim=1)
+        label = torch.argmax(probs, dim=1).to(torch.float32)
+        return torch.cat([label[:, None], probs], dim=1)

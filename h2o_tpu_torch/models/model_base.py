@@ -76,6 +76,9 @@ class Parameters:
                                     # restarts a killed job bit-equal
                                     # (knob H2O_TORCH_CHECKPOINT_SECS)
 
+    def clone(self, **overrides):
+        return dataclasses.replace(self, **overrides)
+
 
 class ModelOutput:
     """What a trained model publishes (`hex/Model.Output`)."""

@@ -288,6 +288,47 @@ def _level_col_mask(lkey, F: int, n_lv: int, cfg: TreeConfig, tree_cols,
     return cmask & tree_cols[:, None]
 
 
+def _node_sums(hist) -> tuple:
+    """Each node's (W, G, H) totals (n_lv,) from feature 0's bins, in the
+    order PyTorch's CPU reduction adds a strided float32 row: four
+    interleaved partial sums over rows of four bins, carried up through
+    levels every 16 rows, the leftover bins added to the first, then the
+    four added. A reduction's rounding depends on its order and the
+    card's differs; written as elementwise adds, which round alike on
+    both, the card gets the CPU's totals and the CPU keeps them."""
+    x = hist[0]                                              # (n_lv, B, 3)
+    n_lv, B, V = x.shape
+    n4 = B // 4
+    rows = x[:, :4 * n4].reshape(n_lv, n4, 4, V)
+    zero = torch.zeros((n_lv, 4, V), dtype=x.dtype, device=x.device)
+    acc = [zero] * 4
+    i = 0
+    while i + 16 <= n4:
+        for _ in range(16):
+            acc[0] = acc[0] + rows[:, i]
+            i += 1
+        for j in range(1, 4):
+            acc[j], acc[j - 1] = acc[j] + acc[j - 1], zero
+            if i & (15 << (4 * j)):
+                break
+    for i in range(i, n4):
+        acc[0] = acc[0] + rows[:, i]
+    part = acc[0] + acc[1] + acc[2] + acc[3]
+    tot = part[:, 0]
+    for b in range(4 * n4, B):
+        tot = tot + x[:, b]
+    tot = tot + part[:, 1] + part[:, 2] + part[:, 3]
+    return tot.unbind(1)
+
+
+def _cumsum64(x) -> torch.Tensor:
+    """Prefix sums over the bins (dim 2), accumulated in float64 and each
+    rounded once to float32: what ``torch.cumsum`` of a float32 tensor
+    computes on the CPU, where the card's float32 scan would add in
+    another order."""
+    return torch.cumsum(x.double(), dim=2).to(torch.float32)
+
+
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as jax rounds a Python float compared with
     a float32 array."""
@@ -320,13 +361,11 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
     W, G, H = hist[..., 0], hist[..., 1], hist[..., 2]
     lam = cfg.reg_lambda
     alpha = cfg.reg_alpha
-    Wt = W.sum(dim=2)[0]     # (n_lv,) — identical across features
-    Gt = G.sum(dim=2)[0]
-    Ht = H.sum(dim=2)[0]
+    Wt, Gt, Ht = _node_sums(hist)   # (n_lv,) — identical across features
 
-    cw = torch.cumsum(W[:, :, :nb], dim=2)[:, :, :-1]      # (F, n_lv, nb-1)
-    cg = torch.cumsum(G[:, :, :nb], dim=2)[:, :, :-1]
-    ch = torch.cumsum(H[:, :, :nb], dim=2)[:, :, :-1]
+    cw = _cumsum64(W[:, :, :nb])[:, :, :-1]                 # (F, n_lv, nb-1)
+    cg = _cumsum64(G[:, :, :nb])[:, :, :-1]
+    ch = _cumsum64(H[:, :, :nb])[:, :, :-1]
     rank = None
     if cfg.use_sets and iscat is not None:
         Wr, Gr, Hr = W[:, :, :nb], G[:, :, :nb], H[:, :, :nb]
@@ -334,11 +373,11 @@ def _find_splits(hist, colmask, edge_ok, cfg: TreeConfig, iscat=None,
         order = torch.argsort(key, dim=2, stable=True)
         rank = torch.argsort(order, dim=2, stable=True)
         isc = iscat[:, None, None]
-        cw = torch.where(isc, torch.cumsum(torch.gather(Wr, 2, order), 2)
+        cw = torch.where(isc, _cumsum64(torch.gather(Wr, 2, order))
                          [:, :, :-1], cw)
-        cg = torch.where(isc, torch.cumsum(torch.gather(Gr, 2, order), 2)
+        cg = torch.where(isc, _cumsum64(torch.gather(Gr, 2, order))
                          [:, :, :-1], cg)
-        ch = torch.where(isc, torch.cumsum(torch.gather(Hr, 2, order), 2)
+        ch = torch.where(isc, _cumsum64(torch.gather(Hr, 2, order))
                          [:, :, :-1], ch)
         # a prefix of k = b+1 bins is meaningful up to all real bins left and
         # NA right (k = nedges + 1, the NA-vs-rest split)

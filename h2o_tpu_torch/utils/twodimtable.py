@@ -24,6 +24,17 @@ class TwoDimTable:
         self.row_headers = list(row_headers) if row_headers else None
         self.cell_values = [list(r) for r in (cell_values or [])]
 
+    @staticmethod
+    def from_dict(name: str, cols: dict) -> "TwoDimTable":
+        """Column dict -> table (columns in insertion order)."""
+        headers = list(cols)
+        n = len(next(iter(cols.values()))) if cols else 0
+        rows = [[cols[h][i] for h in headers] for i in range(n)]
+        types = ["double" if isinstance(cols[h][0], (int, float, np.floating))
+                 else "string" for h in headers] if n else None
+        return TwoDimTable(table_header=name, col_header=headers,
+                           col_types=types, cell_values=rows)
+
     def _fmt(self, v) -> str:
         if v is None:
             return ""

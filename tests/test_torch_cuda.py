@@ -10,7 +10,9 @@ training on the card; the Gram at PCA's MNIST design (z = None, a 0/1
 mask), a DeepLearning run bit-equal twice on the card, and KMeans and PCA
 on the card against the CPU (assignments agreeing on >= 99.9% of rows,
 ``tot_withinss`` and standard deviations within 1e-5 relative, vectors
-equal up to sign where the eigenvalues are separated).
+equal up to sign where the eigenvalues are separated); a tiny AutoML plan
+(GLM, GBM, DRF, DeepLearning, a GBM grid, both ensembles) on the card
+against the CPU (metrics and predictions within 1e-4).
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -833,3 +835,77 @@ def test_kmeans_and_pca_on_the_card_match_the_cpu(dev):
         / np.linalg.norm(Vh, axis=0)
     sep = gaps / ev > 1e-3
     assert sep.any() and cos[sep].min() >= 1 - 1e-5
+
+
+def test_split_search_and_gradients_round_alike_on_card_and_cpu(dev):
+    """The split search on one histogram, and each distribution's gradient
+    and hessian and the softmax, bit-equal on the card and the CPU: their
+    sums are elementwise adds in a fixed order or float64 sums rounded
+    once, their exp and log float64 rounded once (a float32 reduction or
+    exp differs between the devices in the last bit, enough to tip a
+    near-tied split)."""
+    from h2o_tpu_torch.models import distributions as tdist
+    from h2o_tpu_torch.models.gbm import _softmax
+    from h2o_tpu_torch.models.tree import engine
+
+    rng = np.random.default_rng(9)
+    hist = rng.normal(size=(28, 64, 21, 3)).astype(np.float32)
+    hist[..., 0] = rng.integers(0, 50, (28, 64, 21))
+    hist[..., 2] = np.abs(hist[..., 2])
+    edge_ok = np.ones((28, 19), bool)
+    colmask = rng.random((28, 64)) < 0.8
+    cfg = engine.TreeConfig(nbins=20, min_rows=10.0, reg_lambda=1.0)
+    out = [engine._find_splits(*(torch.from_numpy(a).to(d) for a in (
+        hist, colmask, edge_ok)), cfg) for d in (dev, "cpu")]
+    for a, b in zip(out[0][:7], out[1][:7]):
+        assert torch.equal(a.cpu(), b)
+    f = torch.from_numpy(rng.normal(0, 3, 100_000).astype(np.float32))
+    y = torch.from_numpy(rng.gamma(2.0, 1.0, 100_000).astype(np.float32))
+    w = torch.ones_like(f)
+    for name in ("bernoulli", "poisson", "gamma", "tweedie"):
+        dist = tdist.get_distribution(name)
+        for fn in ("gradient", "hessian"):
+            card = getattr(dist, fn)(y.to(dev), f.to(dev), w.to(dev))
+            assert torch.equal(card.cpu(), getattr(dist, fn)(y, f, w)), \
+                (name, fn)
+    k = f.reshape(-1, 4)
+    assert torch.equal(_softmax(k.to(dev), 1).cpu(), _softmax(k, 1))
+
+
+# ---------------------------------------------------------------------------
+# model search
+# ---------------------------------------------------------------------------
+def test_tiny_automl_plan_on_the_card_matches_the_cpu(dev):
+    """``automl.small_plan()`` (GLM with lambda search, a depth-3 GBM, a
+    DRF, a 1-epoch DeepLearning, a 2-model GBM grid and both ensembles)
+    on 300 rows with 2 folds, card against CPU: the same
+    steps and models, every leaderboard metric within 1e-4, the
+    metalearners' coefficients within 1e-4 x max(1, |beta|), the leader's
+    predictions within 1e-4; the flat kernel and the Gram ran."""
+    from h2o_tpu_torch import H2OAutoML
+    from h2o_tpu_torch.models import automl
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        hist.LAUNCHES = gram.GRAM_LAUNCHES = 0
+        fr = _small_binomial(d, n=300)
+        aml = H2OAutoML(max_models=6, nfolds=2, seed=42,
+                        modeling_plan=automl.small_plan())
+        aml.train(y="y", training_frame=fr)
+        runs[d] = (aml, fr, hist.LAUNCHES, gram.GRAM_LAUNCHES)
+    (ca, cfr, flat, grams), (ha, hfr, _f, _g) = runs["cuda"], runs["cpu"]
+    assert flat > 0 and grams > 0
+
+    cs, hs = automl.models_by_step(ca), automl.models_by_step(ha)
+    assert [lb for lb, _ in cs] == [lb for lb, _ in hs] and len(cs) == 8
+    for (lb, cm), (_, hm) in zip(cs, hs):
+        for name in ("auc", "logloss", "rmse"):
+            assert ca.leaderboard._metric(cm, name) == pytest.approx(
+                ha.leaderboard._metric(hm, name), abs=1e-4), (lb, name)
+        if lb.startswith("StackedEnsemble"):
+            hb = hm.metalearner.beta
+            assert np.all(np.abs(cm.metalearner.beta - hb)
+                          <= 1e-4 * np.maximum(1.0, np.abs(hb)))
+    pc = ca.predict(cfr).vec(2).data[:300].cpu()
+    ph = ha.predict(hfr).vec(2).data[:300]
+    assert float((pc - ph).abs().max()) <= 1e-4

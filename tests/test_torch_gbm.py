@@ -167,6 +167,22 @@ def test_find_splits_matches_the_reference(reg_lambda, reg_alpha):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("B", [3, 21, 65, 301])
+def test_split_sums_keep_the_cpu_rounding(B):
+    """The split search's node totals and prefix sums, written so the card
+    rounds as the CPU does, equal the CPU's own ``sum`` and ``cumsum`` of
+    a float32 histogram bit for bit (values over 12 binary orders of
+    magnitude, so any other order of adds would show)."""
+    rng = np.random.default_rng(B)
+    hist = torch.from_numpy((rng.normal(size=(5, 7, B, 3))
+                             * np.exp2(rng.integers(-6, 6, (5, 7, B, 3))))
+                            .astype(np.float32))
+    for c, tot in enumerate(tengine._node_sums(hist)):
+        assert torch.equal(tot, hist[..., c].sum(dim=2)[0])
+    assert torch.equal(tengine._cumsum64(hist[..., 1]),
+                       torch.cumsum(hist[..., 1], dim=2))
+
+
 @pytest.mark.parametrize("name", ["bernoulli", "gaussian"])
 def test_distributions_match_the_reference(name):
     rng = np.random.default_rng(2)

@@ -226,7 +226,8 @@ def test_datainfo_expand_matches_the_reference(mvh):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="multinomial"), dict(family="ordinal"), dict(HGLM=True),
+    dict(interaction_pairs=[("f0", "f1")]), dict(family="ordinal"),
+    dict(HGLM=True),
     dict(interactions=["f0", "f1"]),
     dict(beta_constraints={"names": ["f0"], "lower_bounds": [0.0]}),
     dict(linear_constraints={"names": ["f0", "f1"], "values": [1.0, 1.0],

@@ -11,9 +11,10 @@ Contracts and tolerances:
   numpy draws); training metrics within 1e-6 relative;
 - gblinear: coefficients within 1e-4 x max(1, |beta|), the GLM
   comparison's tolerance;
-- a multinomial gblinear raises ``NotImplementedError`` naming its
-  ROADMAP item; DART's checkpoints and exports are taken (their parity
-  with the reference's continuation is in test_torch_recovery.py).
+- a multinomial gblinear (the multinomial GLM's block IRLS) gives the
+  reference's coefficients within the same tolerance; DART's checkpoints
+  and exports are taken (their parity with the reference's continuation
+  is in test_torch_recovery.py).
 """
 
 import dataclasses
@@ -178,10 +179,11 @@ def test_gblinear_matches_the_reference(case):
 @pytest.mark.parametrize("case", ["dart_checkpoint", "dart_export",
                                   "gblinear_multinomial"])
 def test_unported_xgboost_options_raise(case, tmp_path):
-    """A multinomial gblinear is refused by the GLM (ROADMAP Queue 1 item
-    8). DART's checkpoints and exports are ported now: an unknown prior
-    key raises the reference's ``ValueError``, and an export writes one
-    snapshot per scoring interval that loads and scores."""
+    """A multinomial gblinear, once refused by the GLM, trains the
+    multinomial GLM as the reference does. DART's checkpoints and exports
+    are ported now: an unknown prior key raises the reference's
+    ``ValueError``, and an export writes one snapshot per scoring interval
+    that loads and scores."""
     rng = np.random.default_rng(1)
     fr = Frame.from_dict({"x": rng.normal(size=300).astype(np.float32)},
                          device="cpu")
@@ -206,5 +208,10 @@ def test_unported_xgboost_options_raise(case, tmp_path):
         for k in m.forest:
             assert torch.equal(snap.forest[k], m.forest[k])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        XGBoost(XGBoostParameters(**kw)).train_model()
+    jm, tm, _jfr, _fr = _xgb_both(
+        {"x": fr.vec("x").to_numpy()}, (np.arange(300) % 3).astype(np.float32),
+        ["a", "b", "c"], booster="gblinear", ntrees=2)
+    jb = np.asarray(jm.beta, np.float64)
+    assert tm.booster == "gblinear" and tm.beta.shape == jb.shape == (3, 2)
+    assert np.all(np.abs(tm.beta - jb) <= COEF_TOL * np.maximum(1.0,
+                                                                np.abs(jb)))
