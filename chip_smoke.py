@@ -16,7 +16,9 @@ to cross-validated metrics; state that outlives a training process
 (coded columns, model files, snapshots, kill-and-resume);
 unsupervised and neural models on an MNIST-shaped frame (DeepLearning,
 KMeans, PCA/SVD through the Gram kernel); and model search (AutoML, the
-multinomial GLM, stacked ensembles, grid recovery). In order:
+multinomial GLM, stacked ensembles, grid recovery); and the model surface
+of the tree models (TreeSHAP, node covers, leaf assignments, staged
+predictions, categorical encodings, custom metrics). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -49,6 +51,13 @@ multinomial GLM, stacked ensembles, grid recovery). In order:
    snapshots that each load and score; the continuation saved, loaded by a
    fresh process on the card that scores a saved 100,000-row slice, bit-
    equal to this process's scores;
+2d. ``shap_higgs``: on ``train``'s model, the node covers over the 11M
+   training rows (each root the row count, each node its children's sum)
+   and TreeSHAP contributions of all 11M rows (each row's sum within 1e-4
+   of the float64 margin); on its first 1M rows the leaf node ids (their
+   leaf values summed within 1e-5 of ``predict``'s margin), the leaf paths
+   (naming those nodes) and the staged predictions (the last within 1e-6
+   of ``predict``'s p1); walls and peak memory, no kernel launch;
 3. ``card_vs_cpu``: the same GBM on 1M rows x 5 trees on the card and on
    the CPU: equal forest structure (split features, NA directions, split
    bins), leaf values and predictions within 1e-5;
@@ -123,12 +132,13 @@ multinomial GLM, stacked ensembles, grid recovery). In order:
     within 1e-5;
 13. ``xrt_train``: the same for XRT (random bin edges), 10 trees, 840
     launches;
-13b. ``recovery_drf``: ``drf_train``'s DRF with ``score_tree_interval=10``
+13b. ``recovery_drf``: ``drf_train``'s DRF cut to 30 trees (the script's
+    clock) with ``score_tree_interval=10``
     and ``auto_recovery_dir`` (a state write at every boundary), killed
     before its third chunk (``train.gbm.chunk:raise(preempt)@3``) and
     resumed with ``resume_training``: forest, out-of-bag sums and counts
     and class probabilities bit-equal to an uninterrupted run at the same
-    parameters; 4,200 launches of the plan's wrapper between the two runs;
+    parameters; 2,520 launches of the plan's wrapper between the two runs;
     prints the frame save's seconds and MB/s, the state writes and their
     seconds, and the resume wall against the uninterrupted wall;
 14. ``drf_card_vs_cpu``: that DRF on 100,000 rows x 5 iterations on the card
@@ -177,6 +187,24 @@ multinomial GLM, stacked ensembles, grid recovery). In order:
     the peak device memory; then, after the counted run, holds the Gram
     kernel against its plain version on the main fit's own one-hot design
     (about 4.9M x 690) with the checks and timings of ``gram``;
+17b. ``encoding_airlines``: ``import_cv_gbm``'s GBM settings (10 trees, no
+    CV) on the imported train split under ``categorical_encoding``
+    EnumLimited, SortByResponse and Eigen (~4.9M rows) and OneHotExplicit
+    (1M rows, ~700 columns): 50 histogram launches each, widths, walls and
+    peak memory; the validation split through ``predict`` (the encoding
+    replayed; AUC finite, above 0.6); a saved and loaded model predicting
+    bit for bit alike; EnumLimited's callable ``custom_metric_func`` (a
+    numpy logloss) equal to the logloss of ``predict``'s p1 within 1e-6;
+    after each counted run the wrapper its plan took against the plain
+    version on that model's own root-level inputs, with the checks and
+    timings of ``level_hist_grouped``;
+17c. ``model_surface_card_vs_cpu``: 100,000 HIGGS rows and 100,000 rows
+    of the airlines split on the card and on the CPU: covers, leaf ids and
+    paths equal, contributions within 1e-5, staged predictions within
+    1e-6; every encoding's state and columns bit for bit; the GBMs on the
+    EnumLimited, SortByResponse and Eigen frames structurally equal,
+    leaves within 1e-5; a GLM grid over ``solver=["IRLSM", "L_BFGS"]``
+    raising naming ROADMAP Queue 1 item 8;
 18. ``import_cv_card_vs_cpu``: a 100,000-row CSV of the same generator
     through import, split, the CV GBM and the CV GLM on the card and on
     the CPU: the same frame bit for bit, equal folds and fold/main
@@ -264,7 +292,8 @@ numbers (with each kernel's launches per path; the wrapper the covertype
 plan picks carries that path's levels under ``covtype``; the Gram entry
 carries its times at the CV GLM's, at PCA's and at the multinomial
 GLM's class-block design; the flat entry carries GBM def_5's deep
-levels), and last
+levels; each histogram entry the encoded airlines models' root levels
+that took its wrapper), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -299,7 +328,9 @@ IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
 IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
 SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
 RECOVERY_ROWS = 1_000_000      # recovery_card_vs_cpu: HIGGS rows
-RECOVERY_DRF_TREES = 50        # recovery_drf: drf_train's trees
+RECOVERY_DRF_TREES = 30        # recovery_drf: drf_train's 50 trees cut to 30
+                               # for the script's clock (3 chunks: the kill
+                               # before the third still replays one)
 MNIST_ROWS = 60_000            # MNIST's training set
 MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
 MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
@@ -2224,7 +2255,8 @@ def phase_recovery_drf(dev, fr, wrapper: str) -> int:
     _check(launches == RECOVERY_DRF_TREES * 7 * 12
            and killed_launches == 20 * 7 * 12,
            f"recovery_drf: {launches} launches ({killed_launches} before "
-           f"the kill), want {RECOVERY_DRF_TREES * 7 * 12} (1680)")
+           f"the kill), want {RECOVERY_DRF_TREES * 7 * 12} (1680 before "
+           f"it)")
     return launches
 
 
@@ -3246,6 +3278,366 @@ def phase_grid_recovery(dev) -> int:
     return launches["flat"] + par_flat
 
 
+# -- the model surface (TreeSHAP, leaf assignments, staged predictions,
+#    categorical encodings) ---------------------------------------------------
+SHAP_SUB_ROWS = 1_000_000      # shap_higgs: rows of the leaf and staged checks
+ONEHOT_ROWS = 1_000_000        # encoding_airlines: OneHotExplicit's rows
+SURFACE_CPU_ROWS = 100_000     # model_surface_card_vs_cpu: rows per frame
+ENCODINGS = ("EnumLimited", "SortByResponse", "Eigen", "OneHotExplicit")
+
+
+def _margin64(model, X) -> "torch.Tensor":
+    """f0 plus the summed leaf values in float64, from the leaf ids."""
+    import torch
+
+    nodes = model._leaf_nodes(X)
+    val = model.forest["val"].double()
+    f = torch.full((X.shape[0],), float(model.f0), dtype=torch.float64,
+                   device=X.device)
+    for t in range(val.shape[0]):
+        f += val[t][nodes[:, t]]
+    return f
+
+
+def _frame_columns(fr) -> "torch.Tensor":
+    import torch
+
+    return torch.stack([v.data[:fr.nrow] for v in fr.vecs], dim=1)
+
+
+def _heap_of_path(p: str) -> int:
+    """An L/R path string -> its heap node."""
+    node = 0
+    for c in p:
+        node = 2 * node + (2 if c == "R" else 1)
+    return node
+
+
+def phase_shap_higgs(dev, fr, model) -> dict:
+    """TreeSHAP on the ``train`` phase's model over the 11M HIGGS rows: the
+    node covers over the training rows, the contributions of every row
+    (each row's sum against the float64 margin), then leaf assignments and
+    staged predictions on the first 1M rows against ``predict``."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    model.forest.pop("cover", None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._ensure_covers()
+    torch.cuda.synchronize()
+    covers_s = time.perf_counter() - t0
+    cover = model.forest["cover"].cpu().numpy().astype(np.float64)
+    feat = model.forest["feat"].cpu().numpy()
+    inner = np.argwhere(feat >= 0)
+    kids = cover[inner[:, 0], 2 * inner[:, 1] + 1] + \
+        cover[inner[:, 0], 2 * inner[:, 1] + 2]
+    _check(bool((cover[:, 0] == fr.nrow).all()),
+           f"shap_higgs: root covers {np.unique(cover[:, 0])}, want "
+           f"{fr.nrow}")
+    _check(np.array_equal(kids, cover[inner[:, 0], inner[:, 1]]),
+           "shap_higgs: a node's cover is not its children's sum")
+    t0 = time.perf_counter()
+    phi = model.predict_contributions(fr)
+    torch.cuda.synchronize()
+    contrib_s = time.perf_counter() - t0
+    contrib_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _check(phi.ncol == HIGGS_F + 1 and phi.names[-1] == "BiasTerm",
+           f"shap_higgs: contribution columns {phi.names}")
+    X = model._rows(fr)
+    margin = _margin64(model, X)
+    total = torch.zeros_like(margin)
+    for v in phi.vecs:
+        total += v.data[:fr.nrow].double()
+    sum_err = float((total - margin).abs().max())
+    finite = bool(torch.isfinite(total).all())
+    del phi, total, margin
+    torch.cuda.empty_cache()
+    sub = fr.take(np.arange(SHAP_SUB_ROWS))
+    Xs = model._rows(sub)
+    raw = model._raw_f(Xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = model.predict_leaf_node_assignment(sub, type="Node_ID")
+    torch.cuda.synchronize()
+    ids_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = model.predict_leaf_node_assignment(sub)
+    torch.cuda.synchronize()
+    paths_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = model.staged_predict_proba(sub)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    node = _frame_columns(ids).long()
+    val = model.forest["val"].double()
+    leaf_sum = float(model.f0) + sum(val[t][node[:, t]]
+                                     for t in range(node.shape[1]))
+    leaf_err = float((leaf_sum - raw.double()).abs().max())
+    path_ok = all(
+        torch.equal(torch.tensor([_heap_of_path(p) for p in v.domain],
+                                 device=dev)[v.data[:sub.nrow].long()],
+                    node[:, t])
+        for t, v in enumerate(paths.vecs))
+    p1 = model.predict(sub).vec("ps").data[:sub.nrow]
+    last = staged.vecs[-1].data[:sub.nrow]
+    staged_err = float((last - p1).abs().max())
+    out = dict(rows=fr.nrow, trees=model.ntrees, covers_s=covers_s,
+               contributions_s=contrib_s,
+               contributions_rows_per_s=fr.nrow / contrib_s,
+               contributions_peak_gb=contrib_peak,
+               sum_vs_margin64_max_abs_err=sum_err, sub_rows=sub.nrow,
+               leaf_ids_s=ids_s, leaf_paths_s=paths_s, staged_s=staged_s,
+               leaf_sum_vs_margin_max_abs_err=leaf_err,
+               staged_last_vs_p1_max_abs_err=staged_err,
+               staged_columns=staged.ncol,
+               kernel_launches=hist.LAUNCHES + hist.GROUPED_LAUNCHES
+               + gram.GRAM_LAUNCHES,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    print("shap_higgs", json.dumps(out), flush=True)
+    _check(finite and sum_err <= 1e-4,
+           f"shap_higgs: contributions miss the float64 margin by {sum_err}")
+    _check(leaf_err <= 1e-5, f"shap_higgs: leaf values over the node ids "
+                             f"miss predict's margin by {leaf_err}")
+    _check(path_ok, "shap_higgs: leaf paths do not name the leaf node ids")
+    _check(staged.ncol == model.ntrees and staged_err <= 1e-6,
+           f"shap_higgs: the last stage misses predict's p1 by {staged_err}")
+    return out
+
+
+class _FirstLevel:
+    """Records the first level-histogram call's inputs (the root level of
+    the first tree) while the context is open, and counts the calls."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.backend.kernels import hist
+
+        self.inputs, self.orig = None, hist.level_hist_blocks
+
+        def rec(Xb, lc, vv, *, n_lv, nbins_tot, block, groups=None):
+            if self.inputs is None:
+                self.inputs = (Xb, lc.clone(), vv.clone(), nbins_tot, groups)
+            return self.orig(Xb, lc, vv, n_lv=n_lv, nbins_tot=nbins_tot,
+                             block=block, groups=groups)
+        hist.level_hist_blocks = rec
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.backend.kernels import hist
+
+        hist.level_hist_blocks = self.orig
+
+
+def _logloss_metric(y, raw, w):
+    """A custom metric: the weighted binomial logloss, in numpy."""
+    p = np.clip(raw[:, 2].astype(np.float64), 1e-15, 1 - 1e-15)
+    ok = ~np.isnan(y)
+    ll = -(y[ok] * np.log(p[ok]) + (1 - y[ok]) * np.log(1 - p[ok]))
+    return "np_logloss", float(np.sum(w[ok] * ll) / np.sum(w[ok]))
+
+
+def _encoded_gbm(fr, scheme: str, **kw):
+    """``import_cv_gbm``'s GBM settings (10 trees, depth 5, 20 bins, 1024
+    categorical bins, learn rate 0.1, seed 42) under ``scheme``."""
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    return GBM(GBMParameters(
+        training_frame=fr, response_column="IsDepDelayed", ntrees=10,
+        max_depth=5, nbins=20, nbins_cats=1024, learn_rate=0.1, seed=42,
+        categorical_encoding=scheme, **kw)).train_model()
+
+
+def phase_encoding_airlines(dev, train, valid) -> dict:
+    """The imported airlines train split under four categorical encodings:
+    each model's launches, wall and width, the kernel against its plain
+    version on that model's own first-level inputs, the encoding replayed
+    on the validation split through ``predict`` (AUC finite, above 0.6), a
+    saved and loaded model predicting bit for bit alike; the custom
+    metric's value against its numpy recomputation."""
+    import torch
+
+    from h2o_tpu_torch import load_model
+    from h2o_tpu_torch.backend.kernels import gram, hist
+    from h2o_tpu_torch.models import metrics
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    out = {"launches": {"flat": 0, "grouped": 0}, "models": {},
+           "levels": {}}
+    yv = valid.vec("IsDepDelayed").data[:valid.nrow]
+    for scheme in ENCODINGS:
+        fr = (train.take(np.arange(ONEHOT_ROWS))
+              if scheme == "OneHotExplicit" else train)
+        kw = ({"custom_metric_func": _logloss_metric}
+              if scheme == "EnumLimited" else {})
+        torch.cuda.reset_peak_memory_stats(dev)
+        hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _FirstLevel() as first:
+            model = _encoded_gbm(fr, scheme, **kw)
+        train_s = time.perf_counter() - t0
+        flat, grouped = hist.LAUNCHES, hist.GROUPED_LAUNCHES
+        _check(gram.GRAM_LAUNCHES == 0 and flat + grouped == 10 * 5,
+               f"encoding_airlines {scheme}: {flat} flat, {grouped} grouped, "
+               f"{gram.GRAM_LAUNCHES} Gram launches, want 50 histograms")
+        out["launches"]["flat"] += flat
+        out["launches"]["grouped"] += grouped
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        t0 = time.perf_counter()
+        pred = model.predict(valid)
+        p1 = pred.vec("pYES").data[:valid.nrow]
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        auc = metrics.make_binomial_metrics(yv, p1).auc
+        path = os.path.join(DATA_DIR, f"enc_{scheme}.bin")
+        try:
+            back = load_model(model.save(path), device=dev)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+        same = all(torch.equal(a.data, b.data) for a, b in
+                   zip(pred.vecs, back.predict(valid).vecs))
+        row = dict(rows=fr.nrow, P=len(model.output.names), train_s=train_s,
+                   predict_s=predict_s, flat_launches=flat,
+                   grouped_launches=grouped, valid_auc=auc,
+                   train_auc=model.output.training_metrics.auc,
+                   peak_mem_gb=peak,
+                   plan="flat" if model.cfg.hist_groups is None
+                   else "grouped")
+        if kw:
+            enc = model.params.training_frame
+            ptr = model.predict(enc).vec("pYES").to_numpy().astype(
+                np.float64)
+            y = enc.vec("IsDepDelayed").to_numpy()
+            ok = ~np.isnan(y)
+            p = np.clip(ptr, 1e-15, 1 - 1e-15)
+            want = float(-np.mean(y[ok] * np.log(p[ok])
+                                  + (1 - y[ok]) * np.log(1 - p[ok])))
+            got = model.output.training_metrics.custom_metric_value
+            row.update(custom_metric=got, custom_metric_err=abs(got - want))
+            _check(abs(got - want) <= 1e-6,
+                   f"encoding_airlines: custom metric {got} against numpy's "
+                   f"{want}")
+        print("encoding_airlines", scheme, json.dumps(row), flush=True)
+        _check(bool(np.isfinite(auc)) and auc > 0.6,
+               f"encoding_airlines {scheme}: validation AUC {auc}")
+        _check(same, f"encoding_airlines {scheme}: the loaded model predicts "
+                     f"differently")
+        # after the counted run: the kernel on this model's root level
+        Xb, lc, vv, B, groups = first.inputs
+        is_flat = groups is None
+        plan = (((tuple(range(Xb.shape[1])), B, "onehot"),) if is_flat
+                else groups)
+        lvl = _grouped_level(dev, Xb, lc, vv, plan, 1, B, 5, flat=is_flat)
+        lvl["wrapper"] = "flat" if is_flat else "grouped"
+        print("level_hist_encoding", scheme, json.dumps(lvl), flush=True)
+        out["models"][scheme] = row
+        out["levels"][scheme] = lvl
+        del model, back, pred, first, Xb, lc, vv
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cpu_frame(fr):
+    """The same frame on the CPU, column for column."""
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.frame.vec import Vec
+
+    return Frame(list(fr.names), [Vec(v.data.cpu(), v.nrow, type=v.type,
+                                      domain=v.domain) for v in fr.vecs])
+
+
+def phase_model_surface_card_vs_cpu(dev, air) -> dict:
+    """The model surface on the card and on the CPU: 100,000 HIGGS rows
+    (covers, leaf ids and paths, contributions, staged predictions of one
+    GBM) and 100,000 rows of the airlines split (each encoding's columns;
+    GBMs on three encoded frames); a grid with an L_BFGS combo raises on
+    the card too. Returns the card's histogram launches."""
+    import torch
+
+    from h2o_tpu_torch import GLM, GLMParameters, GridSearch
+    from h2o_tpu_torch.backend.kernels import hist
+    from h2o_tpu_torch.utils import linalg
+
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = 0
+    out = {}
+    frames = {d: _higgs_frame(SURFACE_CPU_ROWS, d) for d in (dev, "cpu")}
+    got = {}
+    for d, fr in frames.items():
+        m = _gbm(fr, ntrees=10)
+        m._ensure_covers()
+        got[d] = dict(
+            model=m, cover=m.forest["cover"].cpu(),
+            ids=_frame_columns(m.predict_leaf_node_assignment(
+                fr, type="Node_ID")).cpu(),
+            paths=[(v.domain, v.data[:fr.nrow].cpu())
+                   for v in m.predict_leaf_node_assignment(fr).vecs],
+            phi=_frame_columns(m.predict_contributions(fr)).cpu(),
+            staged=_frame_columns(m.staged_predict_proba(fr)).cpu())
+    a, b = got[dev], got["cpu"]
+    _same_forest(a["model"], b["model"], "model surface HIGGS")
+    _check(torch.equal(a["cover"], b["cover"]),
+           "model surface: covers differ between card and CPU")
+    _check(torch.equal(a["ids"], b["ids"]),
+           "model surface: leaf node ids differ between card and CPU")
+    _check(all(da == db and torch.equal(ca, cb) for (da, ca), (db, cb)
+               in zip(a["paths"], b["paths"])),
+           "model surface: leaf paths differ between card and CPU")
+    phi_err = float((a["phi"] - b["phi"]).abs().max())
+    staged_err = float((a["staged"] - b["staged"]).abs().max())
+    _check(phi_err <= CPU_TOL, f"model surface: contributions off by "
+                               f"{phi_err}")
+    _check(staged_err <= 1e-6, f"model surface: staged predictions off by "
+                               f"{staged_err}")
+    out["higgs"] = dict(rows=SURFACE_CPU_ROWS, phi_max_abs_err=phi_err,
+                        staged_max_abs_err=staged_err)
+    del got, frames
+    airs = {dev: air, "cpu": _cpu_frame(air)}
+    for scheme in ENCODINGS:
+        encs = {}
+        for d, fr in airs.items():
+            state = linalg.build_encoding_state(
+                fr, scheme, skip=["IsDepDelayed"], response="IsDepDelayed")
+            encs[d] = (state, linalg.apply_encoding_state(fr, state))
+        (sa, ea), (sb, eb) = encs[dev], encs["cpu"]
+        _check(repr(sa) == repr(sb),
+               f"model surface {scheme}: frozen states differ")
+        _check(ea.names == eb.names and all(
+            va.type == vb.type and va.domain == vb.domain and torch.equal(
+                va.data.cpu().view(torch.int32), vb.data.view(torch.int32))
+            for va, vb in zip(ea.vecs, eb.vecs)),
+            f"model surface {scheme}: encoded columns differ")
+        row = dict(columns=ea.ncol)
+        if scheme != "OneHotExplicit":   # ~700 columns: minutes on the CPU
+            ma, mb = (_encoded_gbm(airs[d], scheme) for d in (dev, "cpu"))
+            row.update(_same_forest(ma, mb, f"model surface {scheme}",
+                                    keys=("feat", "nanL", "catd")))
+        out[scheme] = row
+    with_lbfgs = GridSearch(
+        GLM, GLMParameters(training_frame=airs[dev],
+                           response_column="IsDepDelayed",
+                           family="binomial", seed=42),
+        {"solver": ["IRLSM", "L_BFGS"]})
+    try:
+        with_lbfgs.train()
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    _check("ROADMAP Queue 1 item 8" in raised,
+           f"model surface: the L_BFGS grid did not refuse ({raised!r})")
+    out["grid_refusal"] = raised
+    out["launches"] = dict(flat=hist.LAUNCHES, grouped=hist.GROUPED_LAUNCHES)
+    print("model_surface_card_vs_cpu", json.dumps(out), flush=True)
+    # the card's four GBMs (HIGGS and three encodings), 10 trees x 5 levels
+    _check(hist.LAUNCHES + hist.GROUPED_LAUNCHES == 4 * 50,
+           f"model surface: {out['launches']} histogram launches on the "
+           f"card, want 200")
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3296,6 +3688,7 @@ def main() -> int:
     launches, higgs_model = run("train", lambda d: phase_train(d, higgs))
     ckpt_launches = run("checkpoint_higgs", lambda d: phase_checkpoint_higgs(
         d, higgs, higgs_model))
+    run("shap_higgs", lambda d: phase_shap_higgs(d, higgs, higgs_model))
     del higgs_model
     xgb_launches = run("xgboost_train",
                        lambda d: phase_xgboost_train(d, higgs))
@@ -3338,7 +3731,13 @@ def main() -> int:
                                                        calib))
     cv_glm_launches, gram_at_path = run(
         "import_cv_glm", lambda d: phase_import_cv_glm(d, train, valid))
+    enc = run("encoding_airlines",
+              lambda d: phase_encoding_airlines(d, train, valid))
+    air = train.take(np.arange(SURFACE_CPU_ROWS))
     del train, valid, calib
+    surface_launches = run("model_surface_card_vs_cpu",
+                           lambda d: phase_model_surface_card_vs_cpu(d, air))
+    del air
     run("import_cv_card_vs_cpu", phase_import_cv_card_vs_cpu)
     t0 = time.perf_counter()
     mnist = _mnist_frame(MNIST_ROWS, dev)
@@ -3396,6 +3795,10 @@ def main() -> int:
                           glm_multinomial_covtype=mglm_launches,
                           ensemble_covtype=ens_launches["gram"],
                           automl_card_vs_cpu=cvc_launches["gram"])}
+    for path, counts in (("encoding_airlines", enc["launches"]),
+                         ("model_surface_card_vs_cpu", surface_launches)):
+        paths["level_hist"][path] = counts["flat"]
+        paths["level_hist_grouped"][path] = counts["grouped"]
     if ens_launches["grouped"]:
         paths["level_hist_grouped"]["ensemble_covtype"] = \
             ens_launches["grouped"]
@@ -3420,6 +3823,15 @@ def main() -> int:
                  library_ms=nums["library_ms"])
         if name == cov_entry:
             e["covtype"] = cov_nums
+        # each encoded airlines model's root level, under the wrapper its
+        # plan took
+        wrapper = "flat" if name == "level_hist" else "grouped"
+        at_enc = {k: r for k, r in enc["levels"].items()
+                  if r["wrapper"] == wrapper and name != "gram"}
+        if at_enc:
+            e["encoding_airlines_levels"] = at_enc
+            e["max_abs_err"] = max([e["max_abs_err"]] + [
+                r["max_abs_err"] for r in at_enc.values()])
         if name == "level_hist":
             e["higgs_depth6"] = flat["depth6"]
             # GBM def_5's levels of 8,192 nodes and more, on its own

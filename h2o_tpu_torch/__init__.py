@@ -34,7 +34,11 @@ kernel), ``GridSearch`` (Cartesian and RandomDiscrete walks, budgets,
 early stopping, ``parallelism``, recovery, export and import),
 ``StackedEnsemble`` (CV stacking or blending, every metalearner),
 ``H2OAutoML`` (the reference's default plan, leaderboard and event log)
-and ``partial_dependence``/``permutation_varimp``.
+and ``partial_dependence``/``permutation_varimp``. The model surface:
+TreeSHAP contributions, leaf assignments and staged predictions for every
+tree model (``models/tree/shap.py``, ``engine.forest_covers``), the
+categorical encodings frozen at training and replayed at scoring
+(``utils/linalg.py``), custom metrics and the ``Model`` tables.
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads

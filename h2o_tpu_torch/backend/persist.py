@@ -105,6 +105,11 @@ def load_frame(path: str, key: str | None = None, device=None):
 class _HostPickler(pickle.Pickler):
     """Tensors travel as numpy copies, Frames as nothing."""
 
+    proto = pickle.HIGHEST_PROTOCOL
+
+    def __init__(self, file):
+        super().__init__(file, protocol=self.proto)
+
     def persistent_id(self, obj):
         from ..frame.frame import Frame
 
@@ -114,10 +119,21 @@ class _HostPickler(pickle.Pickler):
             return ("frame", obj.key)
         return None
 
+    def reducer_override(self, obj):
+        """Parameters (the model's and its CV models') are saved without a
+        callable ``custom_metric_func``: it is in-process code, and the
+        metric's name and value stay in the training metrics."""
+        from ..models.model_base import Parameters
+
+        if isinstance(obj, Parameters) and callable(obj.custom_metric_func):
+            return dataclasses.replace(
+                obj, custom_metric_func=None).__reduce_ex__(self.proto)
+        return NotImplemented
+
 
 def _dumps(obj) -> bytes:
     buf = io.BytesIO()
-    _HostPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    _HostPickler(buf).dump(obj)
     return buf.getvalue()
 
 

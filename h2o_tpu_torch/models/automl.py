@@ -490,6 +490,8 @@ class H2OAutoML(Keyed):
             log.log("ModelBuilding", f"starting {label}")
             try:
                 models = step.make(self)
+            except NotImplementedError:
+                raise   # what the port has not ported stops the run
             except Exception as e:
                 log.log("ModelBuilding", f"{label} failed: {e!r}",
                         level="Warn")

@@ -278,7 +278,7 @@ class DeepLearningModel(Model):
 
     def adapt_frame(self, fr: Frame):
         """The ``DataInfo``-expanded design, not raw columns."""
-        X, _ = self.dinfo.expand(fr)
+        X, _ = self.dinfo.expand(self.pre_adapt(fr))
         return X
 
     @torch.no_grad()

@@ -46,6 +46,7 @@ import torch
 
 from ..backend.memory import hbm_budget_bytes
 from ..frame.chunks import BinnedView
+from ..frame.frame import Frame
 from ..frame.vec import Vec
 from ..parallel.mesh import resolve_device
 from ..utils import failpoints, threefry
@@ -53,10 +54,11 @@ from ..utils.log import info
 from .distributions import (Bernoulli, Gaussian, Multinomial, _exp,
                             _sigmoid, get_distribution)
 from .metrics import make_metrics
-from .model_base import Model, ModelBuilder, ModelOutput, Parameters
+from .model_base import (Model, ModelBuilder, ModelOutput, Parameters,
+                         _columns_frame)
 from .tree.binning import compute_bin_edges_cols
-from .tree.engine import (TreeConfig, plan_hist_groups, predict_forest,
-                          train_trees)
+from .tree.engine import (TreeConfig, forest_covers, leaf_nodes,
+                          plan_hist_groups, predict_forest, train_trees)
 
 _FOREST_KEYS = ("feat", "thr", "nanL", "val", "gain", "catd")
 #: the reference TreeConfig's JAX execution options: no bearing on the model
@@ -143,7 +145,8 @@ class GBMModel(Model):
         """Carry a JAX-trained tree model over: ``forest`` is the
         reference's forest dict (``feat, thr, nanL, val, gain, catd`` as
         numpy arrays in the ``gbm.py:_assemble_forest`` layout, (T, K, N) for
-        a multinomial forest), ``f0`` its intercept (scalar, or (K,)),
+        a multinomial forest, with ``cover`` when the reference computed
+        its node covers), ``f0`` its intercept (scalar, or (K,)),
         ``edges`` its bin edges, ``names``/``domains`` the feature columns,
         ``cfg_fields`` its TreeConfig fields (``drf_mode`` marks a DRF or
         XRT forest). The model's ``is_cat`` (the features with a domain) and
@@ -167,6 +170,9 @@ class GBMModel(Model):
                       val=np.float32, gain=np.float32, catd=np.float32)
         ft = {k: torch.from_numpy(np.array(forest[k], dtypes[k])).to(dev)
               for k in _FOREST_KEYS}
+        if "cover" in forest:   # the node covers, once SHAP computed them
+            ft["cover"] = torch.from_numpy(
+                np.array(forest["cover"], np.float32)).to(dev)
         output = ModelOutput()
         output.names = list(names)
         output.domains = {n: domains.get(n) for n in names}
@@ -245,6 +251,135 @@ class GBMModel(Model):
         label = torch.argmax(p, dim=1).to(torch.float32)
         return torch.cat([label[:, None], p], dim=1)
 
+    # -- TreeSHAP, leaf assignments, staged predictions (reference
+    #    ``gbm.py:289-440``; `Model.scoreContributions`,
+    #    `scoreLeafNodeAssignment`, `scoreStagedPredictions`) ------------------
+    def _rows(self, fr) -> torch.Tensor:
+        """The frame's (nrow, F) training-order matrix on its device."""
+        return self.adapt_frame(fr)[: fr.nrow]
+
+    def _set_args_np(self):
+        """(catd, iscat, nedges) as numpy for the host-side recursion."""
+        if not self.cfg.use_sets:
+            return None, None, None
+        return (self.forest["catd"].cpu().numpy(),
+                np.asarray(self.is_cat, np.bool_),
+                np.asarray(self.cat_nedges, np.int64))
+
+    def predict_contributions(self, fr) -> Frame:
+        """Per-feature SHAP contributions and ``BiasTerm``, on the link
+        scale: each row sums to the raw prediction. Regression and
+        binomial models only, as in the reference; a DRF's trees are
+        scaled by 1/ntrees."""
+        from .tree.shap import tree_shap
+
+        if self.output.model_category not in ("Regression", "Binomial"):
+            raise ValueError("predict_contributions supports regression and "
+                             "binomial tree models only (as in the "
+                             "reference)")
+        self._ensure_covers()
+        fo = {k: self.forest[k].cpu().numpy()
+              for k in ("feat", "thr", "nanL", "val", "cover")}
+        catd, iscat, nedges = self._set_args_np()
+        scale = 1.0 / max(self.ntrees, 1) if self.cfg.drf_mode else 1.0
+        phi = tree_shap(self._rows(fr), fo["feat"], fo["thr"], fo["nanL"],
+                        fo["val"], fo["cover"], bias0=float(self.f0),
+                        scale=scale, depth=self.cfg.max_depth, catd=catd,
+                        iscat=iscat, nedges=nedges)
+        return _columns_frame(list(self.output.names) + ["BiasTerm"],
+                              phi.to(torch.float32))
+
+    def _ensure_covers(self) -> None:
+        """Each node's weighted count of training rows, computed once, on
+        first use, from the attached training frame (reference
+        ``gbm.py:311``): one routing pass per tree. Rows with an NA
+        response and padding rows weigh 0, as in training."""
+        if "cover" in self.forest:
+            return
+        p = self.params
+        fr = p.training_frame
+        if fr is None:
+            raise ValueError(
+                "model has no stored node covers and no attached training "
+                "frame to compute them from (model was imported without node "
+                "weights)")
+        X = self.adapt_frame(fr)
+        if p.weights_column:
+            w = torch.nan_to_num(fr.vec(p.weights_column).data)
+        else:
+            w = torch.ones(X.shape[0], dtype=torch.float32, device=X.device)
+        w = w * (~torch.isnan(fr.vec(p.response_column).data)).to(w.dtype)
+        catd, iscat, nedges = self._set_args()
+        fo = self.forest
+        self.forest["cover"] = forest_covers(
+            X, w, fo["feat"], fo["thr"], fo["nanL"], self.cfg.max_depth,
+            catd=catd, iscat=iscat, nedges=nedges)
+
+    def _leaf_nodes(self, X: torch.Tensor) -> torch.Tensor:
+        """(R, T[*K]) final heap node of each row in each tree, routed on
+        X's device."""
+        catd, iscat, nedges = self._set_args()
+        fo = self.forest
+        return leaf_nodes(X, fo["feat"], fo["thr"], fo["nanL"],
+                          self.cfg.max_depth, catd=catd, iscat=iscat,
+                          nedges=nedges)
+
+    def predict_leaf_node_assignment(self, fr, type: str = "Path"):
+        """Each row's leaf in each tree: the root-to-leaf path as an L/R
+        string, a categorical column whose domain is the paths present,
+        sorted (``type="Path"``), or the heap node id (``"Node_ID"``).
+        Columns ``T<t>``, or ``T<t>.C<class>`` for a multinomial forest."""
+        nodes = self._leaf_nodes(self._rows(fr))
+        feat = self.forest["feat"]
+        multi = feat.dim() == 3
+        K = feat.shape[1] if multi else 1
+        dom = self.output.response_domain or [str(i) for i in range(K)]
+        names = [f"T{t + 1}" if not multi else f"T{t + 1}.C{dom[k]}"
+                 for t in range(feat.shape[0]) for k in range(K)]
+        if type == "Node_ID":
+            return _columns_frame(names, nodes.to(torch.float32))
+        codes, domains = torch.empty_like(nodes, dtype=torch.float32), []
+        for i in range(len(names)):
+            uniq = [int(u) for u in torch.unique(nodes[:, i]).cpu()]
+            paths = {u: _heap_path(u) for u in uniq}
+            domain = sorted(set(paths.values()))
+            code = {s: j for j, s in enumerate(domain)}
+            lut = torch.zeros(feat.shape[-1], dtype=torch.float32)
+            for u in uniq:
+                lut[u] = code[paths[u]]
+            codes[:, i] = lut.to(nodes.device)[nodes[:, i]]
+            domains.append(domain)
+        out = _columns_frame(names, codes)
+        return Frame(names, [v.astype_cat(d)
+                             for v, d in zip(out.vecs, domains)])
+
+    def staged_predict_proba(self, fr):
+        """The class-1 probability (binomial) or the prediction
+        (regression) after each tree, ``T1..T<ntrees>``: the leaf values
+        summed tree by tree in float32; a DRF's running mean in float64,
+        clipped to [0, 1] for a binomial forest."""
+        if self.output.model_category not in ("Regression", "Binomial"):
+            raise ValueError("staged predictions support regression and "
+                             "binomial models only")
+        nodes = self._leaf_nodes(self._rows(fr))
+        val = self.forest["val"]
+        T = val.shape[0]
+        cum = torch.zeros(nodes.shape[0], dtype=torch.float32,
+                          device=nodes.device)
+        stages = []
+        for t in range(T):
+            cum = cum + val[t][nodes[:, t]]
+            if self.cfg.drf_mode:
+                f = float(self.f0) + cum.double() / (t + 1)
+                if self.output.model_category == "Binomial":
+                    stages.append(torch.clamp(f, 0.0, 1.0).to(torch.float32))
+                else:
+                    stages.append(self.dist.linkinv(f.to(torch.float32)))
+            else:
+                stages.append(self.dist.linkinv(cum + float(self.f0)))
+        return _columns_frame([f"T{t + 1}" for t in range(T)],
+                              torch.stack(stages, dim=1))
+
 
 def _softmax(f, dim: int) -> torch.Tensor:
     """``jax.nn.softmax``'s formula, so both packages round alike; the exp
@@ -300,6 +435,11 @@ def _oob_metrics(category, osum, ocnt, y, ymask, w, auc_type="AUTO",
 class GBM(ModelBuilder):
     algo_name = "gbm"
     drf_mode = False
+    # the reference's tree builders take an offset column, drop it from
+    # the features (`model_base.py:373,386`) and never read it; XGBoost's
+    # gblinear passes it to its GLM. Reproduced on purpose: H2O-3's GBM
+    # fits offsets (ROADMAP Queue 3)
+    _offset_supported = True
     model_class = GBMModel
     _constant_response_check = True  # `hex/tree/SharedTree.init` check
 
@@ -797,3 +937,9 @@ def _assemble_forest(parts) -> dict:
                 for a, part in zip(arrs, parts)]
         out[k] = torch.cat(arrs)
     return out
+
+
+def _heap_path(node: int) -> str:
+    """Heap index -> its root-to-leaf L/R path ('' for the root)."""
+    return "".join("R" if b == "1" else "L" for b in bin(node + 1)[3:])
+

@@ -463,7 +463,7 @@ class GLMModel(Model):
         return dict(zip(names, np.asarray(self.beta)))
 
     def adapt_frame(self, fr) -> torch.Tensor:
-        X, _ok = self.dinfo.expand(fr)
+        X, _ok = self.dinfo.expand(self.pre_adapt(fr))
         return X
 
     def score0(self, X: torch.Tensor) -> torch.Tensor:

@@ -205,6 +205,8 @@ class GridSearch:
             try:
                 return (self.builder_cls(params).train_model(), overrides,
                         None, sig)
+            except NotImplementedError:
+                raise   # what the port has not ported stops the search
             except Exception as e:  # failed combos are data, not fatal
                 return None, overrides, repr(e), sig
 

@@ -62,8 +62,14 @@ class Parameters:
     seed: int = -1
     max_runtime_secs: float = 0.0
     distribution: str = "AUTO"
+    categorical_encoding: str = "AUTO"   # frozen on the training frame and
+                                         # replayed at scoring
+                                         # (``utils/linalg.py``)
+    max_categorical_levels: int = 10     # EnumLimited's top k
     ignore_const_cols: bool = True
     check_constant_response: bool = True
+    balance_classes: bool = False   # declared by the reference, read by no
+                                    # builder of it: accepted and ignored
     stopping_rounds: int = 0
     stopping_metric: str = "AUTO"
     stopping_tolerance: float = 1e-3
@@ -75,6 +81,8 @@ class Parameters:
                                     # of the running job; resume_training
                                     # restarts a killed job bit-equal
                                     # (knob H2O_TORCH_CHECKPOINT_SECS)
+    custom_metric_func: Any = None  # callable(y, raw, w) -> (name, value),
+                                    # evaluated once after training
 
     def clone(self, **overrides):
         return dataclasses.replace(self, **overrides)
@@ -138,11 +146,30 @@ class Model(Keyed):
         classifier."""
         raise NotImplementedError
 
+    def score_raw(self, X: torch.Tensor) -> torch.Tensor:
+        """The serving runtime's traceable raw-matrix scorer (reference
+        ``model_base.py:129``): the serving path is step L."""
+        raise NotImplementedError(
+            f"{self.algo_name}: score_raw (the serving runtime) is not "
+            f"ported yet (ROADMAP Queue 1 item 14, step L)")
+
+    def pre_adapt(self, fr: Frame) -> Frame:
+        """Replay the frozen ``categorical_encoding`` (reference
+        ``model_base.py:140-148``); every ``adapt_frame`` routes incoming
+        frames through this."""
+        enc = getattr(self.output, "encoding_state", None)
+        if enc is None:
+            return fr
+        from ..utils.linalg import apply_encoding_state
+
+        return apply_encoding_state(fr, enc)
+
     def adapt_frame(self, fr: Frame) -> torch.Tensor:
         """adaptTestForTrain analog: training columns of ``fr`` in training
         order, as a (plen, F) matrix on the frame's device, categorical codes
         remapped onto the training domain by level name (unseen levels become
         NaN and follow each node's NA direction)."""
+        fr = self.pre_adapt(fr)
         cols = []
         for name in self.output.names:
             v = fr.vec(name)
@@ -180,7 +207,9 @@ class Model(Keyed):
     def model_performance(self, fr: Frame | None = None):
         if fr is None:
             return self.output.training_metrics
-        raw = self.score0(self.adapt_frame(fr))
+        return self._metrics_of(fr, self.score0(self.adapt_frame(fr)))
+
+    def _metrics_of(self, fr: Frame, raw: torch.Tensor):
         p = self.params
         w = fr.vec(p.weights_column).data if p.weights_column else None
         y = _response_device(fr, p.response_column,
@@ -188,6 +217,87 @@ class Model(Keyed):
         return make_metrics(self.output.model_category, y, raw, w,
                             auc_type=p.auc_type,
                             domain=self.output.response_domain)
+
+    def score_with_metrics(self, fr: Frame) -> tuple:
+        """(predictions frame, metrics) from one scoring pass (reference
+        ``model_base.py:201``, the BigScore map that serves both)."""
+        raw = self.score0(self.adapt_frame(fr))
+        return self._predictions_frame(raw, fr.nrow), self._metrics_of(fr,
+                                                                        raw)
+
+    def auc(self):
+        """The training AUC, or None where there is none (regression, or a
+        multinomial AUC left unset): never NaN (reference ``:216``)."""
+        a = getattr(self.output.training_metrics, "auc", None)
+        if a is None or (isinstance(a, float) and np.isnan(a)):
+            return None
+        return a
+
+    def varimp_table(self):
+        """The variable importances as a TwoDimTable (reference ``:226``)."""
+        vi = self.output.variable_importances
+        if not vi:
+            return None
+        from ..utils.twodimtable import TwoDimTable
+
+        return TwoDimTable.from_dict("Variable Importances", {
+            "variable": list(vi["variable"]),
+            "relative_importance": [float(x) for x in
+                                    vi["relative_importance"]],
+            "scaled_importance": [float(x) for x in vi["scaled_importance"]],
+            "percentage": [float(x) for x in vi["percentage"]]})
+
+    def scoring_history_table(self):
+        """The scoring history as a TwoDimTable: scalar entries as columns,
+        the training metrics' logloss/auc/rmse/mse where present and not
+        NaN (reference ``:238``)."""
+        hist = self.output.scoring_history
+        if not hist:
+            return None
+        from ..utils.twodimtable import TwoDimTable
+
+        cols: dict[str, list] = {}
+        for h in hist:
+            for k, v in h.items():
+                if k == "training_metrics":
+                    for mk in ("logloss", "auc", "rmse", "mse"):
+                        mv = getattr(v, mk, None)
+                        if mv is not None and not np.isnan(mv):
+                            cols.setdefault(f"training_{mk}", []).append(
+                                float(mv))
+                elif isinstance(v, (int, float, str)):
+                    cols.setdefault(k, []).append(v)
+        return TwoDimTable.from_dict("Scoring History", cols)
+
+    def save_mojo(self, path: str, *args, **kwargs):
+        """MOJO export (reference ``:265``): ROADMAP Queue 1 item 10."""
+        raise NotImplementedError(
+            f"{self.algo_name}: MOJO export is not ported yet (ROADMAP "
+            f"Queue 1 item 10)")
+
+    download_mojo = save_mojo
+
+    def save_pojo(self, path: str, *args, **kwargs):
+        """POJO export (reference ``:272``): ROADMAP Queue 1 item 10."""
+        raise NotImplementedError(
+            f"{self.algo_name}: POJO export is not ported yet (ROADMAP "
+            f"Queue 1 item 10)")
+
+    download_pojo = save_pojo
+
+    def partial_dependence(self, fr, cols=None, nbins: int = 20,
+                           weight_column=None, targets=None,
+                           row_index: int = -1):
+        from .explain import partial_dependence
+
+        return partial_dependence(self, fr, cols, nbins, weight_column,
+                                  targets, row_index=row_index)
+
+    def permutation_importance(self, fr, metric: str = "AUTO",
+                               n_repeats: int = 1, seed: int = -1):
+        from .explain import permutation_varimp
+
+        return permutation_varimp(self, fr, metric, n_repeats, seed)
 
 
 def _response_device(fr: Frame, response: str, train_dom) -> torch.Tensor:
@@ -240,6 +350,14 @@ class ModelBuilder:
             raise NotImplementedError(f"{self.algo_name}: offset columns "
                                       "(ROADMAP Queue 1 item 6) are not "
                                       "ported yet")
+        cmf = p.custom_metric_func
+        if isinstance(cmf, str) and cmf.startswith("python:"):
+            # the reference resolves it through an uploaded file in the
+            # K/V store (`custom_udf.py:111-127`): the REST tier
+            raise NotImplementedError(
+                f"{self.algo_name}: a custom metric uploaded as "
+                f"{cmf!r} is not ported yet (ROADMAP Queue 1 item 13); "
+                "pass a callable")
         if (self.supervised and p.check_constant_response
                 and self._constant_response_check):
             r = p.training_frame.vec(p.response_column).rollups()
@@ -309,9 +427,17 @@ class ModelBuilder:
 
         def run():
             t0 = time.perf_counter()
+            # recovery persists the original inputs: a resumed build
+            # replays the (deterministic) encoding itself
             self._arm_auto_recovery()
+            enc_state = self._apply_categorical_encoding()
             model = (self._train_with_cv(self.job) if self._is_cv()
                      else self.build_impl(self.job))
+            if enc_state is not None:
+                model.output.encoding_state = enc_state
+                for cv in model.output.cv_models:
+                    cv.output.encoding_state = enc_state
+            self._apply_custom_metric(model)
             if dev is not None and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             model.output.run_time_ms = int((time.perf_counter() - t0) * 1000)
@@ -406,6 +532,55 @@ class ModelBuilder:
                 f"recovery state is for algo {rs.get('algo')!r}, "
                 f"this builder is {self.algo_name!r}")
         return rs
+
+    def _apply_categorical_encoding(self):
+        """Eigen, OneHotExplicit, Binary, LabelEncoder, EnumLimited or
+        SortByResponse (reference ``model_base.py:674-699``): freeze the
+        transform on the training frame, swap the params to the encoded
+        training and validation frames, and return the state the model
+        replays at scoring (None for AUTO/Enum)."""
+        from ..utils.linalg import apply_encoding_state, build_encoding_state
+
+        p = self.params
+        skip = [p.response_column, p.weights_column, p.offset_column,
+                p.fold_column] + list(p.ignored_columns)
+        state = build_encoding_state(
+            p.training_frame, p.categorical_encoding,
+            skip=[s for s in skip if s], response=p.response_column,
+            weights=p.weights_column,
+            max_levels=int(p.max_categorical_levels or 10))
+        if state is None:
+            return None
+        updates = {"training_frame": apply_encoding_state(p.training_frame,
+                                                          state)}
+        if p.validation_frame is not None:
+            updates["validation_frame"] = apply_encoding_state(
+                p.validation_frame, state)
+        self.params = p.clone(**updates)
+        return state
+
+    def _apply_custom_metric(self, model: Model) -> None:
+        """One extra scoring pass on the model's device, then the user's
+        ``custom_metric_func(y, raw, w) -> (name, value)`` on numpy copies,
+        attached to the training metrics (reference ``model_base.py:
+        701-725``, `hex/CMetricScoringTask`)."""
+        cmf = self.params.custom_metric_func
+        m = model.output.training_metrics
+        if not callable(cmf) or m is None or not self.supervised:
+            return
+        fr = self.params.training_frame
+        try:
+            raw = model.score0(model.adapt_frame(fr))[: fr.nrow]
+        except NotImplementedError:
+            return
+        raw = raw.cpu().numpy()
+        y = fr.vec(self.params.response_column).to_numpy()
+        w = (np.nan_to_num(fr.vec(self.params.weights_column).to_numpy())
+             if self.params.weights_column
+             else np.ones(fr.nrow, np.float32))
+        name, value = cmf(y, raw, w)
+        m.custom_metric_name = name
+        m.custom_metric_value = float(value)
 
     # -- cross-validation (`hex/ModelBuilder.java:614`) -----------------------
     def _train_with_cv(self, job: Job) -> Model:

@@ -643,39 +643,104 @@ def train_trees(Xb, y, w, f, edges, edge_ok, keys, rates, cfg: TreeConfig,
     return f, osum, ocnt, tuple(torch.stack(t) for t in zip(*trees))
 
 
+def _route_tree(X, ft, th, nl, cd, iscat, nedges, max_depth: int,
+                visit=None) -> torch.Tensor:
+    """One tree's traversal of the raw rows: (R,) int64 final heap node of
+    each row. Each level reads the row's value at its node's split feature
+    with a gather and tests the raw threshold; at a set-split node (``cd``
+    (N, nb) given and the feature flagged in ``iscat``) the level code maps
+    to its bin, ``min(level, nedges[f])``, and the node's direction row is
+    read there; NA follows the node's NA direction; leaves hold their node.
+    ``visit(node, moved)``, when given, sees each level's node ids and the
+    rows that moved into them."""
+    ft = ft.long()
+    node = torch.zeros((X.shape[0],), dtype=torch.int64, device=X.device)
+    for _ in range(max_depth):
+        f_n = ft[node]
+        fc = torch.clamp(f_n, min=0)
+        x = torch.gather(X, 1, fc[:, None])[:, 0]
+        num_right = x > th[node]
+        if cd is not None:
+            isset = iscat[fc] & (f_n >= 0)
+            xb = torch.minimum(torch.clamp(torch.nan_to_num(x), min=0.0),
+                               nedges[fc].to(torch.float32)).long()
+            num_right = torch.where(isset, cd[node, xb] > 0.5, num_right)
+        go_right = torch.where(torch.isnan(x), ~nl[node], num_right)
+        split = f_n >= 0
+        node = torch.where(split, 2 * node + 1 + go_right.long(), node)
+        if visit is not None:
+            visit(node, split)
+    return node
+
+
+def _trees(feat):
+    """(t, k) index pairs of a forest's trees in the reference's order:
+    trees, then classes within a tree for a (T, K, N) forest."""
+    if feat.dim() == 3:
+        return [(t, k) for t in range(feat.shape[0])
+                for k in range(feat.shape[1])]
+    return [(t, None) for t in range(feat.shape[0])]
+
+
+def _pick(a, t, k):
+    return None if a is None else (a[t] if k is None else a[t, k])
+
+
+def leaf_nodes(X, feat, thr, nanL, max_depth: int, catd=None, iscat=None,
+               nedges=None) -> torch.Tensor:
+    """(R, T[*K]) final heap node of every row in every tree, on X's device
+    (the reference's host routing, ``h2o_tpu/models/gbm.py:351-391``)."""
+    return torch.stack([
+        _route_tree(X, _pick(feat, t, k), _pick(thr, t, k),
+                    _pick(nanL, t, k), _pick(catd, t, k), iscat, nedges,
+                    max_depth)
+        for t, k in _trees(feat)], dim=1)
+
+
+def forest_covers(X, w, feat, thr, nanL, max_depth: int, catd=None,
+                  iscat=None, nedges=None) -> torch.Tensor:
+    """Per-node weighted training-row counts ("cover"), (T, [K,] N) float32
+    (``h2o_tpu/models/tree/engine.py:1306``): one routing pass per tree
+    over the rows, adding each row's weight ``w`` (R,) to every node it
+    reaches. A level's rows land in that level's nodes only, so each node
+    takes its count from one `_node_totals` pass: sums in 64-bit fixed
+    point, the same in any order and on any device, exact integers for
+    unit weights."""
+    N = feat.shape[-1]
+    wv = w.to(torch.float32)[:, None]
+    out = torch.zeros(feat.shape, dtype=torch.float32, device=X.device)
+    for t, k in _trees(feat):
+        cover = torch.zeros((N,), dtype=torch.float32, device=X.device)
+        cover[0] = _node_totals(torch.zeros_like(w, dtype=torch.int64), wv,
+                                1)[0, 0]
+
+        def visit(node, moved):
+            nonlocal cover
+            cover = cover + _node_totals(
+                node, torch.where(moved[:, None], wv, 0.0), N)[:, 0]
+
+        _route_tree(X, _pick(feat, t, k), _pick(thr, t, k),
+                    _pick(nanL, t, k), _pick(catd, t, k), iscat, nedges,
+                    max_depth, visit=visit)
+        out[(t,) if k is None else (t, k)] = cover
+    return out
+
+
 def predict_forest(X, feat, thr, nanL, val, max_depth: int, catd=None,
                    iscat=None, nedges=None) -> torch.Tensor:
     """X (R, F) raw values; feat/thr/nanL/val (T, N), or (T, K, N) for a
-    multinomial forest. Returns the summed tree outputs (R,), or (R, K).
-    Each level reads the row's value at its node's split feature with a
-    gather and tests the raw threshold; at a set-split node (``catd`` (T,
-    [K,] N, nb) given and the feature flagged in ``iscat``) the level code
-    maps to its bin, ``min(level, nedges[f])``, and the node's direction row
-    is read there; NA follows the node's NA direction; leaves hold their
-    node."""
+    multinomial forest. Returns the summed tree outputs (R,), or (R, K),
+    through `_route_tree`."""
     if feat.dim() == 3:
         return torch.stack([
             predict_forest(X, feat[:, k], thr[:, k], nanL[:, k], val[:, k],
                            max_depth, None if catd is None else catd[:, k],
                            iscat, nedges)
             for k in range(feat.shape[1])], dim=1)
-    R = X.shape[0]
-    out = torch.zeros((R,), dtype=torch.float32, device=X.device)
+    out = torch.zeros((X.shape[0],), dtype=torch.float32, device=X.device)
     for t in range(feat.shape[0]):
-        ft, th, nl, vl = feat[t].long(), thr[t], nanL[t], val[t]
-        node = torch.zeros((R,), dtype=torch.int64, device=X.device)
-        for _ in range(max_depth):
-            f_n = ft[node]
-            fc = torch.clamp(f_n, min=0)
-            x = torch.gather(X, 1, fc[:, None])[:, 0]
-            num_right = x > th[node]
-            if catd is not None:
-                isset = iscat[fc] & (f_n >= 0)
-                xb = torch.minimum(torch.clamp(torch.nan_to_num(x), min=0.0),
-                                   nedges[fc].to(torch.float32)).long()
-                num_right = torch.where(isset, catd[t][node, xb] > 0.5,
-                                        num_right)
-            go_right = torch.where(torch.isnan(x), ~nl[node], num_right)
-            node = torch.where(f_n < 0, node, 2 * node + 1 + go_right.long())
-        out = out + vl[node]
+        node = _route_tree(X, feat[t], thr[t], nanL[t],
+                           None if catd is None else catd[t], iscat, nedges,
+                           max_depth)
+        out = out + val[t][node]
     return out

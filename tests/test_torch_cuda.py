@@ -12,7 +12,10 @@ on the card against the CPU (assignments agreeing on >= 99.9% of rows,
 ``tot_withinss`` and standard deviations within 1e-5 relative, vectors
 equal up to sign where the eigenvalues are separated); a tiny AutoML plan
 (GLM, GBM, DRF, DeepLearning, a GBM grid, both ensembles) on the card
-against the CPU (metrics and predictions within 1e-4).
+against the CPU (metrics and predictions within 1e-4); the model surface
+of a set-split GBM under three encodings on the card against the CPU
+(encoded columns, covers, leaf ids and paths bit-equal, contributions
+within 1e-5, staged predictions within 1e-6).
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -909,3 +912,59 @@ def test_tiny_automl_plan_on_the_card_matches_the_cpu(dev):
     pc = ca.predict(cfr).vec(2).data[:300].cpu()
     ph = ha.predict(hfr).vec(2).data[:300]
     assert float((pc - ph).abs().max()) <= 1e-4
+
+
+def _cat_frame(device, n=3000, seed=7):
+    """A 24-level categorical (the signal in half its levels, so set
+    splits), a numeric column with NAs and a binomial response."""
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.frame.vec import T_CAT, Vec
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 24, n).astype(np.float32)
+    x = rng.normal(size=n).astype(np.float32)
+    effect = rng.permutation(24) % 2
+    y = (2 * effect[codes.astype(int)] - 1 + 0.5 * x
+         + rng.normal(0, 1.5, n) > 0).astype(np.float32)
+    x[::53] = np.nan
+    fr = Frame(["c", "x"], [
+        Vec.from_numpy(codes, type=T_CAT, domain=[f"L{i}" for i in range(24)],
+                       device=device),
+        Vec.from_numpy(x, device=device)])
+    fr.add("y", Vec.from_numpy(y, type=T_CAT, domain=["n", "p"],
+                               device=device))
+    return fr
+
+
+@pytest.mark.parametrize("encoding", ["AUTO", "SortByResponse", "Eigen"])
+def test_model_surface_on_the_card_matches_the_cpu(dev, encoding):
+    """Covers, leaf ids and paths bit-equal; contributions within 1e-5 and
+    staged predictions within 1e-6 of the CPU's, on a set-split GBM
+    trained under each encoding (its encoded columns bit-equal)."""
+    from h2o_tpu_torch import GBM, GBMParameters
+    from h2o_tpu_torch.utils import linalg
+
+    out = {}
+    for d in ("cuda", "cpu"):
+        fr = _cat_frame(d)
+        m = GBM(GBMParameters(training_frame=fr, response_column="y",
+                              ntrees=6, max_depth=4, seed=3,
+                              categorical_encoding=encoding)).train_model()
+        state = linalg.build_encoding_state(fr, encoding, skip=["y"],
+                                            response="y")
+        enc = fr if state is None else linalg.apply_encoding_state(fr,
+                                                                   state)
+        cols = lambda f: torch.stack([v.data[:f.nrow].cpu()
+                                      for v in f.vecs], 1)
+        m._ensure_covers()
+        out[d] = dict(
+            enc=cols(enc), cover=m.forest["cover"].cpu(),
+            ids=cols(m.predict_leaf_node_assignment(fr, type="Node_ID")),
+            paths=cols(m.predict_leaf_node_assignment(fr)),
+            phi=cols(m.predict_contributions(fr)),
+            staged=cols(m.staged_predict_proba(fr)))
+    a, b = out["cuda"], out["cpu"]
+    for k in ("enc", "cover", "ids", "paths"):     # float32, bit for bit
+        assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
+    torch.testing.assert_close(a["phi"], b["phi"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(a["staged"], b["staged"], rtol=0, atol=1e-6)

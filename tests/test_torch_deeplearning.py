@@ -46,6 +46,8 @@ from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models import deeplearning as tdl
 from h2o_tpu_torch.utils import failpoints, threefry
 
+from torch_parity import LazyCases
+
 torch.set_num_threads(2)
 
 N = 300
@@ -114,11 +116,13 @@ def _params(resp, kw, **more):
 
 @pytest.fixture(scope="module")
 def fits():
-    """Every case once in both packages, the reference's checkpoint
-    continuation, and the frames: (cases, continuation, frames)."""
+    """Each case once in both packages, on first use; the reference's
+    checkpoint continuation, on first use; and the frames: (cases,
+    continuation, frames)."""
     jfr, fr, one = _frames()
-    out = {}
-    for case, (resp, kw) in CASES.items():
+
+    def fit(case):
+        resp, kw = CASES[case]
         common = _params(resp, kw)
         with meshmod.use_mesh(one):
             jm = jdl.DeepLearning(jdl.DeepLearningParameters(
@@ -129,13 +133,17 @@ def fits():
                 jpred = np.asarray(jm.score0(jm.adapt_frame(jfr)))[:N]
         tm = DeepLearning(DeepLearningParameters(training_frame=fr, **common)
                           ).train_model()
-        out[case] = (jm, jpred, tm)
-    with meshmod.use_mesh(one):
-        jprior = out["rectifier"][0]
-        jcont = jdl.DeepLearning(jdl.DeepLearningParameters(
-            training_frame=jfr, checkpoint=jprior,
-            **dict(_params("bin", {}), epochs=5))).train_model()
-    return out, jcont, (jfr, fr, one)
+        return jm, jpred, tm
+
+    out = LazyCases(fit)
+
+    def continuation(_key):
+        with meshmod.use_mesh(one):
+            return jdl.DeepLearning(jdl.DeepLearningParameters(
+                training_frame=jfr, checkpoint=out["rectifier"][0],
+                **dict(_params("bin", {}), epochs=5))).train_model()
+
+    return out, LazyCases(continuation), (jfr, fr, one)
 
 
 def _assert_tree_close(a, b, atol):
@@ -435,7 +443,7 @@ def test_continuation_of_the_reference_checkpoint(fits):
     """The port continues the reference's 2-epoch net (carried with its
     ADADELTA state) to 5 epochs as the reference's continuation does."""
     jm = fits[0]["rectifier"][0]
-    jcont = fits[1]
+    jcont = fits[1]["rectifier"]
     _jfr, fr, _one = fits[2]
     prior = DeepLearningModel.from_reference(jm, device="cpu")
     cont = DeepLearning(DeepLearningParameters(

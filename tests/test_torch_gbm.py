@@ -236,7 +236,10 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.backend.kvstore, h2o_tpu_torch.backend.jobs, "
             "h2o_tpu_torch.backend.persist, h2o_tpu_torch.utils.failpoints, "
             "h2o_tpu_torch.utils.log, h2o_tpu_torch.models.deeplearning, "
-            "h2o_tpu_torch.models.kmeans, h2o_tpu_torch.models.pca; "
+            "h2o_tpu_torch.models.kmeans, h2o_tpu_torch.models.pca, "
+            "h2o_tpu_torch.models.grid, h2o_tpu_torch.models.automl, "
+            "h2o_tpu_torch.models.ensemble, h2o_tpu_torch.models.explain, "
+            "h2o_tpu_torch.models.tree.shap, h2o_tpu_torch.utils.linalg; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -245,11 +248,55 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def _one_tree(fr):
+    return GBM(GBMParameters(training_frame=fr, **dict(KW, ntrees=1))
+               ).train_model()
+
+
+def _grid_lbfgs(fr, _tmp):
+    from h2o_tpu_torch import GLM, GLMParameters, GridSearch
+
+    GridSearch(GLM, GLMParameters(training_frame=fr, response_column="y",
+                                  family="binomial"),
+               {"solver": ["IRLSM", "L_BFGS"]}).train()
+
+
+def _automl_lbfgs(fr, _tmp):
+    from h2o_tpu_torch import H2OAutoML
+    from h2o_tpu_torch.models import automl
+
+    plan = [automl.Step("GBM", "def_1", automl._model_step(
+                "gbm", dict(ntrees=1, max_depth=2))),
+            automl.Step("GLM", "lbfgs", automl._model_step(
+                "glm", dict(solver="L_BFGS")))]
+    H2OAutoML(max_models=2, nfolds=0, seed=1,
+              modeling_plan=plan).train(y="y", training_frame=fr)
+
+
+#: what the model surface refuses: (ROADMAP Queue 1 item, the call)
+_REFUSALS = {
+    "save_mojo": (10, lambda fr, d: _one_tree(fr).save_mojo(str(d / "m"))),
+    "download_mojo": (10, lambda fr, d: _one_tree(fr).download_mojo(
+        str(d / "m"))),
+    "save_pojo": (10, lambda fr, d: _one_tree(fr).save_pojo(str(d / "p"))),
+    "download_pojo": (10, lambda fr, d: _one_tree(fr).download_pojo(
+        str(d / "p"))),
+    "score_raw": (14, lambda fr, d: _one_tree(fr).score_raw(
+        torch.zeros((4, 3)))),
+    "python_udf": (13, lambda fr, d: GBM(GBMParameters(
+        training_frame=fr, custom_metric_func="python:key=mod.Metric",
+        **KW))),
+    "grid_lbfgs": (8, _grid_lbfgs),
+    "automl_lbfgs": (8, _automl_lbfgs),
+}
+
+
 @pytest.mark.parametrize("change", [
     dict(nfolds=3), dict(calibrate_model=True), dict(checkpoint="prior_gbm"),
     dict(distribution="custom", custom_distribution_func=tdist.Gaussian()),
     "multinomial_auc", "goss", "dart_checkpoint", "parquet", "avro_uri",
-    "coded_vec",
+    "coded_vec", "save_mojo", "download_mojo", "save_pojo", "download_pojo",
+    "score_raw", "python_udf", "grid_lbfgs", "automl_lbfgs",
 ])
 def test_out_of_slice_options_raise(change, tmp_path):
     """What the port still refuses raises naming its ROADMAP item: GOSS
@@ -262,7 +309,10 @@ def test_out_of_slice_options_raise(change, tmp_path):
     chunk codecs (``compress`` codes the columns and decodes them bit for
     bit) and checkpoints, GBM's and DART's, where a key the store does not
     hold raises the reference's ``ValueError`` (their parity is in
-    test_torch_recovery.py)."""
+    test_torch_recovery.py). The model surface's refusals name their
+    items: MOJO/POJO export, ``score_raw`` (serving), a custom metric
+    uploaded as a ``"python:"`` reference; a grid or an AutoML run that
+    meets a refusal (GLM's L_BFGS) raises it."""
     if change == "goss":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.TreeConfig(goss=(0.2, 0.1)).check_supported()
@@ -280,6 +330,12 @@ def test_out_of_slice_options_raise(change, tmp_path):
         return
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
+    if isinstance(change, str) and change in _REFUSALS:
+        item, call = _REFUSALS[change]
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}\\b"):
+            call(fr, tmp_path)
+        return
     if change == "coded_vec":
         cfr = fr.compress()
         assert cfr.names == fr.names

@@ -262,3 +262,54 @@ def test_exact_gbm_matches_the_reference():
             histogram_type="Exact")
     assert np.array_equal(tm.edges.view(np.int32), je.view(np.int32))
     assert_forest_equal(jm, tm, NEWTON_TOL)
+
+
+def _scenario(case):
+    """``tests/test_gbm.py``'s GBM scenarios that no other parity test
+    holds: (columns, response, GBM keywords)."""
+    cols, y = _regression_cols()
+    rng = np.random.default_rng(11)
+    if case == "nas_and_weights":            # test_gbm.py:82
+        cols["x1"] = cols["x1"].copy()
+        cols["x1"][::7] = np.nan
+        cols["w"] = rng.integers(1, 4, size=y.shape[0]).astype(np.float32)
+        return cols, y, dict(weights_column="w", ntrees=10, max_depth=3,
+                             seed=0)
+    if case == "learn_rate_annealing":       # test_gbm.py:129
+        x = rng.normal(size=1000).astype(np.float32)
+        y = 3 * x + 0.1 * rng.normal(size=1000).astype(np.float32)
+        return {"x": x}, y, dict(ntrees=30, max_depth=3, seed=1,
+                                 learn_rate=0.3, learn_rate_annealing=0.9)
+    if case == "max_abs_leafnode_pred":      # test_gbm.py:319
+        return cols, y, dict(ntrees=10, max_depth=4, seed=1,
+                             max_abs_leafnode_pred=0.05)
+    if case == "col_sample_rate_change_per_level":   # test_gbm.py:319
+        return cols, y, dict(ntrees=10, max_depth=4, seed=1,
+                             col_sample_rate=1.0,
+                             col_sample_rate_change_per_level=0.5)
+    # an offset column: the reference's GBM drops it from the features
+    # and never reads it (ROADMAP Queue 3)
+    cols["off"] = rng.normal(size=y.shape[0]).astype(np.float32)
+    return cols, y, dict(offset_column="off", ntrees=5, max_depth=3, seed=0)
+
+
+@pytest.mark.parametrize("case", ["nas_and_weights", "learn_rate_annealing",
+                                  "max_abs_leafnode_pred",
+                                  "col_sample_rate_change_per_level",
+                                  "offset_column"])
+def test_gbm_scenario_matches_the_reference(case):
+    """The forest (structure exactly, leaves within 1e-5), predictions
+    within 1e-5 and training MSE within 1e-5 relative."""
+    cols, y, kw = _scenario(case)
+    jm, tm, jfr, fr = _gbm_both(cols, y, **kw)
+    assert tm.output.names == jm.output.names
+    assert_forest_equal(jm, tm, NEWTON_TOL)
+    n = y.shape[0]
+    with meshmod.use_mesh(jfr.vec(0).data.sharding.mesh):
+        jraw = np.asarray(jm.score0(jm.adapt_frame(jfr)))[:n]
+    np.testing.assert_allclose(tm.score0(tm.adapt_frame(fr)).numpy()[:n],
+                               jraw, rtol=0, atol=NEWTON_TOL)
+    assert tm.output.training_metrics.mse == pytest.approx(
+        jm.output.training_metrics.mse, rel=1e-5)
+    if case == "max_abs_leafnode_pred":
+        assert float(tm.forest["val"].abs().max()) <= 0.05 + 1e-7

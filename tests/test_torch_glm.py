@@ -45,6 +45,8 @@ from h2o_tpu_torch import GLM, GBM, Frame, GBMParameters, GLMModel, \
 from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models.datainfo import DataInfo
 
+from torch_parity import LazyCases
+
 torch.set_num_threads(2)
 
 N = 8000
@@ -117,10 +119,10 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def fits():
-    """Every case fitted once in both packages: (reference model, its raw
-    scores, port model, its raw scores, the port frame)."""
-    out = {}
-    for case, (kind, extra, kw) in CASES.items():
+    """Each case fitted once in both packages, on first use: (reference
+    model, its raw scores, port model, its raw scores, the port frame)."""
+    def fit(case):
+        kind, extra, kw = CASES[case]
         jfr, fr, one = _frames(kind, with_extra=extra)
         common = dict(response_column="y", seed=42,
                       ignored_columns=["wt", "off"] if extra else [], **kw)
@@ -130,8 +132,9 @@ def fits():
             jraw = np.asarray(jm.score0(jm.adapt_frame(jfr)))[:N]
         tm = GLM(GLMParameters(training_frame=fr, **common)).train_model()
         traw = tm.score0(tm.adapt_frame(fr)).numpy()[:N]
-        out[case] = (jm, jraw, tm, traw, fr)
-    return out
+        return jm, jraw, tm, traw, fr
+
+    return LazyCases(fit)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -245,8 +248,17 @@ def test_out_of_slice_options_raise(change):
 
 
 def test_gbm_still_refuses_an_offset_column():
+    """The GBM no longer refuses an offset column: as the reference's, it
+    takes the column, leaves it out of the features and never reads it
+    (ROADMAP Queue 3: H2O-3's GBM fits offsets), so the forest is the one
+    grown with the column ignored. GBM's parity with the reference's
+    forest under an offset is in test_torch_gbm_options.py."""
     _jfr, fr, _one = _frames("binomial", n=500)
-    fr.add("off", Vec.from_numpy(np.zeros(500, np.float32), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GBM(GBMParameters(training_frame=fr, response_column="y",
-                          offset_column="off", ntrees=1))
+    off = np.random.default_rng(3).normal(size=500).astype(np.float32)
+    fr.add("off", Vec.from_numpy(off, device="cpu"))
+    kw = dict(training_frame=fr, response_column="y", ntrees=1)
+    m = GBM(GBMParameters(offset_column="off", **kw)).train_model()
+    ref = GBM(GBMParameters(ignored_columns=["off"], **kw)).train_model()
+    assert "off" not in m.output.names
+    for k in ("feat", "thr", "nanL", "val"):
+        assert torch.equal(m.forest[k], ref.forest[k])

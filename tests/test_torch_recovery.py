@@ -53,7 +53,7 @@ from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models import gbm as gbm_mod
 from h2o_tpu_torch.utils import failpoints as fp
 
-from torch_parity import assert_forest_equal, frames
+from torch_parity import LazyCases, assert_forest_equal, frames
 
 torch.set_num_threads(2)
 
@@ -361,39 +361,52 @@ def _dart_drops(ntrees, n_prior, seed, rate_drop):
 @pytest.fixture(scope="module")
 def continuations():
     """The same 4 -> 10-tree GBM continuation and 4 -> 8-tree DART
-    continuation (from the GBM prior) in both packages."""
+    continuation (from the GBM prior) in both packages, each built on
+    first use: kind -> (reference model, port model, reference
+    predictions, port predictions)."""
     cols = {"x1": _COLS["x1"], "x2": _COLS["x2"]}
     one, jfr, fr = frames(cols, _Y, ydom=["0", "1"])
     kw = dict(response_column="y", **_REF_KW)
-    with meshmod.use_mesh(one):
-        jprior = JGBM(JGBMParameters(training_frame=jfr, ntrees=4, **kw)
-                      ).train_model()
-        jcont = JGBM(JGBMParameters(training_frame=jfr, ntrees=10,
-                                    checkpoint=jprior, **kw)).train_model()
-        jdart = JXGBoost(JXGBoostParameters(
-            training_frame=jfr, ntrees=8, checkpoint=jprior, **_DART_KW,
-            **kw)).train_model()
-        jp = {"gbm": np.asarray(jcont.predict(jfr).vec(2).data)[:_N],
-              "dart": np.asarray(jdart.predict(jfr).vec(2).data)[:_N]}
-    prior = GBM(GBMParameters(training_frame=fr, ntrees=4, **kw)
-                ).train_model()
-    cont = GBM(GBMParameters(training_frame=fr, ntrees=10, checkpoint=prior,
-                             **kw)).train_model()
-    dart = XGBoost(XGBoostParameters(training_frame=fr, ntrees=8,
-                                     checkpoint=prior, **_DART_KW, **kw)
-                   ).train_model()
-    tp = {"gbm": cont.predict(fr).vec(2).data[:_N].numpy(),
-          "dart": dart.predict(fr).vec(2).data[:_N].numpy()}
-    return {"gbm": (jcont, cont), "dart": (jdart, dart)}, jp, tp
+
+    def priors(_key):
+        with meshmod.use_mesh(one):
+            jprior = JGBM(JGBMParameters(training_frame=jfr, ntrees=4, **kw)
+                          ).train_model()
+        return jprior, GBM(GBMParameters(training_frame=fr, ntrees=4, **kw)
+                           ).train_model()
+
+    prior = LazyCases(priors)
+
+    def fit(kind):
+        jprior, tprior = prior["gbm"]
+        with meshmod.use_mesh(one):
+            if kind == "gbm":
+                jm = JGBM(JGBMParameters(training_frame=jfr, ntrees=10,
+                                         checkpoint=jprior, **kw)
+                          ).train_model()
+            else:
+                jm = JXGBoost(JXGBoostParameters(
+                    training_frame=jfr, ntrees=8, checkpoint=jprior,
+                    **_DART_KW, **kw)).train_model()
+            jp = np.asarray(jm.predict(jfr).vec(2).data)[:_N]
+        if kind == "gbm":
+            tm = GBM(GBMParameters(training_frame=fr, ntrees=10,
+                                   checkpoint=tprior, **kw)).train_model()
+        else:
+            tm = XGBoost(XGBoostParameters(training_frame=fr, ntrees=8,
+                                           checkpoint=tprior, **_DART_KW,
+                                           **kw)).train_model()
+        return jm, tm, jp, tm.predict(fr).vec(2).data[:_N].numpy()
+
+    return LazyCases(fit)
 
 
 @pytest.mark.parametrize("kind", ["gbm", "dart"])
 def test_continuation_matches_the_reference(continuations, kind):
-    models, jp, tp = continuations
-    jm, tm = models[kind]
+    jm, tm, jp, tp = continuations[kind]
     assert tm.ntrees == jm.ntrees
     assert_forest_equal(jm, tm, val_atol=LEAF_TOL)
-    np.testing.assert_allclose(tp[kind], jp[kind], rtol=0, atol=LEAF_TOL)
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=LEAF_TOL)
     if kind == "dart":
         assert tm.dropped_trees == _dart_drops(8, 4, 11, 0.3)
         assert any(tm.dropped_trees)

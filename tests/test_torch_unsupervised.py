@@ -52,6 +52,8 @@ from h2o_tpu_torch.frame.vec import T_CAT, Vec
 from h2o_tpu_torch.models import kmeans as tkmeans
 from h2o_tpu_torch.utils import threefry
 
+from torch_parity import LazyCases
+
 torch.set_num_threads(2)
 
 N = 600
@@ -209,10 +211,9 @@ KM_CASES = {
 
 @pytest.fixture(scope="module")
 def kmeans_fits(frames):
-    return {case: _train_both(JKMeans, JKMeansParameters, KMeans,
-                              KMeansParameters, frames,
-                              dict(seed=42, max_iterations=20, **kw))
-            for case, kw in KM_CASES.items()}
+    return LazyCases(lambda case: _train_both(
+        JKMeans, JKMeansParameters, KMeans, KMeansParameters, frames,
+        dict(seed=42, max_iterations=20, **KM_CASES[case])))
 
 
 @pytest.mark.parametrize("case", list(KM_CASES))
@@ -274,16 +275,15 @@ SVD_CASES = {m.lower(): dict(transform="STANDARDIZE", svd_method=m)
 
 @pytest.fixture(scope="module")
 def pca_fits(frames):
-    out = {}
-    for case, kw in PCA_CASES.items():
-        out["pca_" + case] = _train_both(JPCA, JPCAParameters, PCA,
-                                         PCAParameters, frames,
-                                         dict(k=3, seed=5, **kw))
-    for case, kw in SVD_CASES.items():
-        out["svd_" + case] = _train_both(JSVD, JSVDParameters, SVD,
-                                         SVDParameters, frames,
-                                         dict(nv=3, seed=5, **kw))
-    return out
+    def fit(case):
+        kind, name = case.split("_", 1)
+        if kind == "pca":
+            return _train_both(JPCA, JPCAParameters, PCA, PCAParameters,
+                               frames, dict(k=3, seed=5, **PCA_CASES[name]))
+        return _train_both(JSVD, JSVDParameters, SVD, SVDParameters, frames,
+                           dict(nv=3, seed=5, **SVD_CASES[name]))
+
+    return LazyCases(fit)
 
 
 @pytest.mark.parametrize("case", ["pca_" + c for c in PCA_CASES]

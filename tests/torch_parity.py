@@ -27,6 +27,22 @@ from h2o_tpu_torch.frame.vec import T_CAT, Vec
 THR_ATOL = 5e-7
 
 
+class LazyCases(dict):
+    """A module fixture's cases, each trained on first use: ``fit(case)``
+    runs when a test first reads ``cases[case]``. Under xdist the tests
+    of one module land on several workers, and each worker that reads a
+    module fixture builds it; built lazily, a worker trains only the
+    cases its own tests read."""
+
+    def __init__(self, fit):
+        super().__init__()
+        self._fit = fit
+
+    def __missing__(self, case):
+        self[case] = out = self._fit(case)
+        return out
+
+
 def frames(cols, y=None, ydom=None):
     """(mesh, reference frame, port frame) of numeric ``cols`` plus the
     response ``y`` as "y" (categorical over ``ydom`` when given)."""
