@@ -16,9 +16,12 @@ to cross-validated metrics; state that outlives a training process
 (coded columns, model files, snapshots, kill-and-resume);
 unsupervised and neural models on an MNIST-shaped frame (DeepLearning,
 KMeans, PCA/SVD through the Gram kernel); and model search (AutoML, the
-multinomial GLM, stacked ensembles, grid recovery); and the model surface
+multinomial GLM, stacked ensembles, grid recovery); the model surface
 of the tree models (TreeSHAP, node covers, leaf assignments, staged
-predictions, categorical encodings, custom metrics). In order:
+predictions, categorical encodings, custom metrics); and the rest of GLM
+(p-values, L_BFGS, box and linear constraints, alpha lists, ``ml``
+dispersion, interactions, HGLM, the ordinal family) with ANOVA GLM and
+ModelSelection over it. In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -96,13 +99,29 @@ predictions, categorical encodings, custom metrics). In order:
    finite training AUC above 0.6, residual below null deviance, finite
    coefficients and predictions;
 9. ``glm_cod_train``: the same with ``solver="COORDINATE_DESCENT"``;
+9b. ``glm_pvalues_higgs``: IRLSM at lambda 0 with ``compute_p_values``:
+    Gram launches = iterations + 1 (the Fisher pass), std errors finite
+    and positive, p-values in [0, 1]; the kernel against its plain version
+    on the Fisher pass's own inputs;
+9c. ``glm_lbfgs_higgs``: the same with ``solver="L_BFGS"``: no launch,
+    coefficients within 1e-3 x max(1, |beta|) of 9b's, residual deviance
+    within a relative 1e-4;
+9d. ``glm_constrained_higgs``: bounds on four coefficients, one equality
+    and one inequality linear constraint: residuals within 1e-5, the
+    constraints table; ``alpha=[0, 0.5, 1.0]`` at lambda 1e-4: the best
+    alpha, each fit's launches;
+9e. ``anova_modelselection_higgs``: ANOVA GLM over 5 predictors with
+    their pairs (16 fits) at 2M rows; ModelSelection maxr (gaussian, a
+    drawn response) over the 28 predictors at 11M rows — one Gram launch
+    of [X | 1 | y] (z = None), then held against the plain version —;
+    backward (binomial) over 8 predictors at 1M rows;
 10. ``glm_card_vs_cpu``: two fits at 1M rows on the card and on the CPU —
     IRLSM with ``lambda_search`` and COD with ``lambda_=1e-3`` —
     coefficients within 1e-4 x max(1, |beta|), residual deviance within a
     relative 1e-5, predictions within 1e-4 (a one-iteration difference in
     where IRLS stops moves beta by up to ``beta_epsilon``); the card's
     lambda search makes iterations + 1 Gram launches (its lambda_max pass);
-10b. ``gbm_options_card_vs_cpu``: 250,000 HIGGS rows with a regression
+10b. ``gbm_options_card_vs_cpu``: 100,000 HIGGS rows with a regression
     response and a positive one from the generator's latent; 5 trees each
     of poisson, gamma, tweedie, laplace, quantile (alpha 0.9), huber (alpha
     0.9), gaussian with two monotone constraints and one interaction
@@ -111,11 +130,11 @@ predictions, categorical encodings, custom metrics). In order:
     CPU: equal split features, NA directions, split bins and tree counts,
     leaf values and predictions within 1e-5, the same variable-importance
     order, and the early-stopped model stopping before its 20 trees;
-10c. ``xgboost_card_vs_cpu``: 1M HIGGS rows, 5 rounds of DART (rate_drop
-    0.3, seed 42, max_depth 6) on the card and on the CPU: the same dropped
-    trees, equal forests, leaves and predictions within 1e-5; and the
-    gblinear fit (COD over the Gram kernel): coefficients within 1e-4 x
-    max(1, |beta|), one Gram launch per iteration on the card;
+10c. ``xgboost_card_vs_cpu``: 250,000 HIGGS rows, 5 rounds of DART
+    (rate_drop 0.3, seed 42, max_depth 6) on the card and on the CPU: the
+    same dropped trees, equal forests, leaves and predictions within 1e-5;
+    and the gblinear fit (COD over the Gram kernel): coefficients within
+    1e-4 x max(1, |beta|), one Gram launch per iteration on the card;
 11. ``level_hist_covtype``: the kernel through the wrapper the covertype
     frame's plan picks (581,012 rows x 54: 10 continuous columns, 4
     wilderness and 40 soil one-hots; ``_covtype_cols``), on the frame's own
@@ -141,16 +160,16 @@ predictions, categorical encodings, custom metrics). In order:
     parameters; 2,520 launches of the plan's wrapper between the two runs;
     prints the frame save's seconds and MB/s, the state writes and their
     seconds, and the resume wall against the uninterrupted wall;
-14. ``drf_card_vs_cpu``: that DRF on 100,000 rows x 5 iterations on the card
+14. ``drf_card_vs_cpu``: that DRF on 30,000 rows x 3 iterations on the card
     and on the CPU: equal split features, NA directions, split bins, leaf
     values and out-of-bag counts (integer channels), predictions within
     1e-5; and ``model_performance`` under each of the four multinomial
     ``auc_type``s on both devices: within 1e-6, finite, in (0.5, 1];
-14b. ``recovery_card_vs_cpu``: the GBM kill drill at every boundary on 1M
-    HIGGS rows (6 trees, ``score_tree_interval=2``: 3 kills) on the card:
-    each resumed forest and its predictions bit-equal to the card's
-    uninterrupted run, which matches the CPU's within the ``card_vs_cpu``
-    tolerances;
+14b. ``recovery_card_vs_cpu``: the GBM kill drill at every boundary
+    on 250,000 HIGGS rows (6 trees, ``score_tree_interval=2``: 3 kills)
+    on the card: each resumed forest and its predictions bit-equal to the
+    card's uninterrupted run, which matches the CPU's within the
+    ``card_vs_cpu`` tolerances;
 15. ``import_csv``: writes the airlines generator (seed 116) as a
     7,009,728-row CSV (the row count of the ASA Data Expo 2009 on-time
     file for 2008; levels as strings, ``Distance`` NA on every 97th row,
@@ -204,7 +223,29 @@ predictions, categorical encodings, custom metrics). In order:
     1e-6; every encoding's state and columns bit for bit; the GBMs on the
     EnumLimited, SortByResponse and Eigen frames structurally equal,
     leaves within 1e-5; a GLM grid over ``solver=["IRLSM", "L_BFGS"]``
-    raising naming ROADMAP Queue 1 item 8;
+    and ``feature_parallelism=[1, 2]`` raising naming ROADMAP Queue 1 item
+    1 (step M);
+17d. ``glm_interactions_airlines``: that GLM on the imported train split
+    (no CV) with the pairs UniqueCarrier x Month (cat x cat, capped at 100
+    combos), UniqueCarrier x Distance (cat x num) and CRSDepTime x Distance
+    (num x num): Gram launches = IRLS iterations, P and peak memory (at
+    most 60 GiB), validation AUC through the replayed interactions finite
+    and above 0.6, a saved and loaded model predicting bit for bit alike;
+    then the kernel against its plain version on the fit's own design;
+17e. ``hglm_airlines``: HGLM on the same split, Origin (300 levels) the
+    random intercept, Distance, CRSDepTime and DayOfWeek fixed, a gaussian
+    response drawn on it (per-Origin effects of mean square 0.36, noise
+    of mean square 1): no kernel launch (float64 cross products),
+    ``varfix`` and ``varranef`` within 10% of those;
+17f. ``glm_rest_card_vs_cpu``: every option of the GLM's remainder at
+    100,000 rows on the card and on the CPU (p-values, L_BFGS, box and
+    linear constraints, the alpha list, gamma and tweedie ``ml``
+    dispersion, interactions, HGLM, the ordinal family, ANOVA,
+    ModelSelection maxr and backward): coefficients within 1e-4 x max(1,
+    |beta|), std errors and p-values within 1e-5 relative, the same ANOVA
+    terms (each LR statistic within 1e-6 of its reduced model's float32
+    deviance, each p-value inside the band that puts on the CPU's) and
+    ModelSelection subsets, HGLM's variances within 1e-5;
 18. ``import_cv_card_vs_cpu``: a 100,000-row CSV of the same generator
     through import, split, the CV GBM and the CV GLM on the card and on
     the CPU: the same frame bit for bit, equal folds and fold/main
@@ -241,11 +282,11 @@ predictions, categorical encodings, custom metrics). In order:
     (on an H100 the float32 one misses the float64 Gram by 3.1e-5 of an
     entry's mass there, the kernel by 1.8e-6; its distance is printed),
     with the timings of ``gram``;
-23. ``recovery_dl``: ``dl_mnist``'s model at 3 epochs with
+23. ``recovery_dl``: ``dl_mnist``'s model at 2 epochs (cut from 3) with
     ``auto_recovery_dir`` (a state write every epoch), killed at
-    ``train.dl.epoch:raise(preempt)@3`` and resumed with
+    ``train.dl.epoch:raise(preempt)@2`` and resumed with
     ``resume_training``: weights and optimizer slots bit-equal to an
-    uninterrupted 3-epoch run; prints the frame save, the state writes
+    uninterrupted 2-epoch run; prints the frame save, the state writes
     and the resume wall;
 24. ``unsupervised_card_vs_cpu``: 2,000 rows of the generator on the card
     and on the CPU: DL (hidden [32, 32], 2 epochs) weights within 1e-4;
@@ -253,7 +294,7 @@ predictions, categorical encodings, custom metrics). In order:
     within 1e-5 relative; PCA (k = 10) standard deviations within 1e-5
     relative, vectors equal up to sign (|cos| >= 1 - 1e-5) where the
     eigenvalues are separated by more than 1e-3 relative;
-25. ``automl_higgs``: ``H2OAutoML(max_models=13, nfolds=3, seed=42,
+25. ``automl_higgs``: ``H2OAutoML(max_models=13, nfolds=2, seed=42,
     exclude_algos=["DeepLearning"])`` (``AUTOML_FOLDS``, cut from 5) on
     250,000 HIGGS-shaped rows at the full 28 features — 3 XGBoost, the
     lambda-search GLM, DRF, GBM def_1..def_5, XRT, a 2-model GBM grid,
@@ -268,6 +309,9 @@ predictions, categorical encodings, custom metrics). In order:
     covertype frame: sweeps x 7 x 3 Gram launches, mean per-class error
     below 6/7, logloss below 1.205 nats, class rows summing to 1; then the
     Gram against its plain version on the last class block's design;
+26b. ``glm_ordinal_covtype``: the ordinal family on that frame, its 7
+    classes taken as ordered (full-batch Adam, no kernel): thresholds
+    strictly increasing, mean per-class error below 6/7, steps and wall;
 27. ``ensemble_covtype``: a 3-fold GBM (10 trees, depth 5), DRF (10
     trees) and multinomial GLM under the AUTO metalearner: 21 level-one
     columns, class probabilities finite, rows summing to 1 within 1e-5;
@@ -290,8 +334,9 @@ removed after each phase.
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
 plan picks carries that path's levels under ``covtype``; the Gram entry
-carries its times at the CV GLM's, at PCA's and at the multinomial
-GLM's class-block design; the flat entry carries GBM def_5's deep
+carries its times at the CV GLM's, at PCA's, at the multinomial
+GLM's class-block design, at the p-values' Fisher pass, at the
+interaction design and at ModelSelection's [X | 1 | y]; the flat entry carries GBM def_5's deep
 levels; each histogram entry the encoded airlines models' root levels
 that took its wrapper), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -322,23 +367,30 @@ GRAM_TOL = 1e-5                # Gram entry vs plain: <= this x entry |mass|
 GLM_COEF_TOL = 1e-4            # card vs CPU: |dbeta| <= this x max(1, |beta|)
 GLM_DEV_TOL = 1e-5             # card vs CPU: residual deviance, relative
 GLM_PRED_TOL = 1e-4            # card vs CPU: predictions
-OPTIONS_ROWS = 250_000         # gbm_options_card_vs_cpu: HIGGS rows
-XGB_CPU_ROWS = 1_000_000       # xgboost_card_vs_cpu: HIGGS rows
+OPTIONS_ROWS = 100_000         # gbm_options_card_vs_cpu: HIGGS rows (cut
+                               # from 250,000 for the clock)
+XGB_CPU_ROWS = 250_000         # xgboost_card_vs_cpu: HIGGS rows (cut
+                               # from 1M for the clock)
 IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
 IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
 SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
-RECOVERY_ROWS = 1_000_000      # recovery_card_vs_cpu: HIGGS rows
+RECOVERY_ROWS = 250_000        # recovery_card_vs_cpu: HIGGS rows (cut
+                               # from 1M for the clock)
 RECOVERY_DRF_TREES = 30        # recovery_drf: drf_train's 50 trees cut to 30
+DRF_CPU_ROWS = 30_000          # drf_card_vs_cpu: covertype rows (cut from
+DRF_CPU_ITERATIONS = 3         # 100,000 x 5 iterations for the clock)
                                # for the script's clock (3 chunks: the kill
                                # before the third still replays one)
 MNIST_ROWS = 60_000            # MNIST's training set
 MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
 MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
+RECOVERY_DL_EPOCHS = 2.0       # recovery_dl: cut from 3 epochs (PR 12)
 AUTOML_ROWS = 250_000          # automl_higgs: HIGGS rows (cut from 11M)
-AUTOML_FOLDS = 3               # automl_higgs: CV folds (cut from 5: 78 fits
+AUTOML_FOLDS = 2               # automl_higgs: CV folds (cut from 5: 78 fits
                                # took 208-226 s on an H100 at 700 W, and
                                # 100,000 rows no less: a deep tree's levels
-                               # cost by their 2^level nodes, not rows)
+                               # cost by their 2^level nodes, not rows; 3
+                               # folds took 164-228 s, so 2 since PR 12)
 AUTOML_CPU_ROWS = 20_000       # automl_card_vs_cpu: HIGGS and covertype rows
 GRID_ROWS = 100_000            # grid_recovery: HIGGS rows
 #: what H2O's airlines demos pass to import_file
@@ -779,8 +831,8 @@ GBM_OPTIONS = {
                                 interaction_constraints=[["f0", "f1",
                                                           "f2"]])),
     "exact": ("reg", dict(histogram_type="Exact")),
-    # the MSE falls 11-19% a scoring until the sixth (10%, 250k rows), so
-    # it stops at 12 trees
+    # the MSE falls 11-19% a scoring until the sixth (10%), so it stops at
+    # 12 trees (at 250,000 rows, and at 100,000 on the CPU)
     "early_stopped": ("reg", dict(ntrees=20, score_tree_interval=2,
                                   stopping_rounds=2,
                                   stopping_tolerance=0.11)),
@@ -815,7 +867,7 @@ def _same_forest(a, b, what: str, keys=("feat", "nanL")) -> dict:
 
 
 def phase_gbm_options_card_vs_cpu(dev) -> None:
-    """Every GBM option this slice ported, 5 trees at 250,000 HIGGS rows on
+    """Every GBM option this slice ported, 5 trees at 100,000 HIGGS rows on
     the card and on the CPU: equal forests, leaves and predictions within
     CPU_TOL, the same variable-importance order; the early-stopped model
     stops at the same tree count."""
@@ -849,7 +901,7 @@ def phase_gbm_options_card_vs_cpu(dev) -> None:
 
 
 def phase_xgboost_card_vs_cpu(dev) -> int:
-    """DART (5 rounds, rate_drop 0.3) and gblinear at 1M HIGGS rows on the
+    """DART (5 rounds, rate_drop 0.3) and gblinear at 250,000 HIGGS rows on the
     card and on the CPU; returns the card gblinear fit's Gram launches."""
     import torch
 
@@ -1530,11 +1582,11 @@ def phase_drf_train(dev, fr, ntrees: int, xrt: bool, what: str,
 
 
 def phase_drf_card_vs_cpu(dev) -> None:
-    """The covertype DRF on 100,000 rows x 5 iterations (35 trees, depth
+    """The covertype DRF on 30,000 rows x 3 iterations (21 trees, depth
     12), on the card and on the CPU: integer channels, so identical."""
     import torch
 
-    rows, ntrees = 100_000, 5
+    rows, ntrees = DRF_CPU_ROWS, DRF_CPU_ITERATIONS
     models, probs, frames = {}, {}, {}
     for d in (dev, "cpu"):
         t0 = time.perf_counter()
@@ -2261,10 +2313,11 @@ def phase_recovery_drf(dev, fr, wrapper: str) -> int:
 
 
 def phase_recovery_card_vs_cpu(dev) -> None:
-    """The GBM kill drill at every boundary on 1M HIGGS rows (6 trees,
-    ``score_tree_interval=2``: 3 kills) on the card: each resumed forest
-    and its predictions bit-equal to the card's uninterrupted run; that
-    forest against the CPU's within the ``card_vs_cpu`` tolerances."""
+    """The GBM kill drill at every boundary on 250,000 HIGGS rows (6
+    trees, ``score_tree_interval=2``: 3 kills) on the card: each resumed
+    forest and its predictions bit-equal to the card's uninterrupted run;
+    that forest against the CPU's within the ``card_vs_cpu``
+    tolerances."""
     import shutil
 
     import torch
@@ -2636,10 +2689,10 @@ def phase_pca_mnist(dev, fr) -> tuple[int, dict]:
 
 
 def phase_recovery_dl(dev, fr) -> dict:
-    """``dl_mnist``'s model at 3 epochs with ``auto_recovery_dir`` (a state
-    write at every epoch), killed at ``train.dl.epoch:raise(preempt)@3``
+    """``dl_mnist``'s model at 2 epochs with ``auto_recovery_dir`` (a state
+    write at every epoch), killed at ``train.dl.epoch:raise(preempt)@2``
     and resumed with ``resume_training``: weights and optimizer slots
-    bit-equal to an uninterrupted 3-epoch run."""
+    bit-equal to an uninterrupted 2-epoch run."""
     import shutil
 
     import torch
@@ -2655,15 +2708,17 @@ def phase_recovery_dl(dev, fr) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        base = _dl_mnist(fr, epochs=3.0)
+        base = _dl_mnist(fr, epochs=RECOVERY_DL_EPOCHS)
         base_s = time.perf_counter() - t0
-        failpoints.arm("train.dl.epoch", "raise(preempt)@3")
+        failpoints.arm("train.dl.epoch",
+                       f"raise(preempt)@{int(RECOVERY_DL_EPOCHS)}")
         t0 = time.perf_counter()
         with _Walls(persist, "save_frame", dev) as frame_saves, \
                 _Walls(persist.TrainingRecovery, "save_state",
                        dev) as writes:
             try:
-                _dl_mnist(fr, epochs=3.0, auto_recovery_dir=rdir)
+                _dl_mnist(fr, epochs=RECOVERY_DL_EPOCHS,
+                          auto_recovery_dir=rdir)
                 _check(False, "recovery_dl: the kill did not fire")
             except failpoints.InjectedPreemption:
                 pass
@@ -2681,7 +2736,8 @@ def phase_recovery_dl(dev, fr) -> dict:
             os.environ.pop("H2O_TORCH_CHECKPOINT_SECS", None)
         else:
             os.environ["H2O_TORCH_CHECKPOINT_SECS"] = old
-    out = dict(rows=fr.nrow, epochs=3, killed_before_epoch=3,
+    n = int(RECOVERY_DL_EPOCHS)
+    out = dict(rows=fr.nrow, epochs=n, killed_before_epoch=n,
                uninterrupted_s=base_s, killed_run_s=killed_s,
                resume_s=resume_s, frame_save_s=frame_saves.s,
                state_writes=len(writes.s),
@@ -2691,8 +2747,8 @@ def phase_recovery_dl(dev, fr) -> dict:
     print("recovery_dl", json.dumps(out), flush=True)
     _check(_nets_equal(res, base),
            "recovery_dl: resumed weights or slots differ")
-    _check(manifest["completed"] and killed_writes == 2
-           and len(writes.s) == 3 and res.epochs_trained == 3.0,
+    _check(manifest["completed"] and killed_writes == n - 1
+           and len(writes.s) == n and res.epochs_trained == float(n),
            f"recovery_dl: {len(writes.s)} state writes ({killed_writes} "
            f"before the kill), manifest {manifest}")
     return out
@@ -2953,25 +3009,28 @@ def _multinomial_glm(fr, **kw):
 
 
 class _GramInputs:
-    """While open, the GLM's Gram calls keep the inputs of the last one
-    (a class block's design, IRLS weights and working response)."""
+    """While open, the Gram calls of ``module`` (the GLM's by default,
+    or ModelSelection's) keep the inputs of the last one: a class block's
+    design, IRLS weights and working response, or [X | 1 | y] and its
+    row weights."""
 
-    def __enter__(self):
+    def __init__(self, module=None):
         from h2o_tpu_torch.models import glm
 
-        self.orig, self.last = glm.gram_accumulate, None
+        self.module = module or glm
+
+    def __enter__(self):
+        self.orig, self.last = self.module.gram_accumulate, None
         orig = self.orig
 
         def kept(X, W, z=None):
             self.last = (X, W, z)
             return orig(X, W, z)
-        glm.gram_accumulate = kept
+        self.module.gram_accumulate = kept
         return self
 
     def __exit__(self, *exc):
-        from h2o_tpu_torch.models import glm
-
-        glm.gram_accumulate = self.orig
+        self.module.gram_accumulate = self.orig
 
 
 def phase_glm_multinomial_covtype(dev, fr) -> tuple[int, dict]:
@@ -3554,8 +3613,8 @@ def phase_model_surface_card_vs_cpu(dev, air) -> dict:
     """The model surface on the card and on the CPU: 100,000 HIGGS rows
     (covers, leaf ids and paths, contributions, staged predictions of one
     GBM) and 100,000 rows of the airlines split (each encoding's columns;
-    GBMs on three encoded frames); a grid with an L_BFGS combo raises on
-    the card too. Returns the card's histogram launches."""
+    GBMs on three encoded frames); a GLM grid with a feature-parallel combo
+    raises on the card too. Returns the card's histogram launches."""
     import torch
 
     from h2o_tpu_torch import GLM, GLMParameters, GridSearch
@@ -3616,18 +3675,19 @@ def phase_model_surface_card_vs_cpu(dev, air) -> dict:
             row.update(_same_forest(ma, mb, f"model surface {scheme}",
                                     keys=("feat", "nanL", "catd")))
         out[scheme] = row
-    with_lbfgs = GridSearch(
+    refused = GridSearch(
         GLM, GLMParameters(training_frame=airs[dev],
                            response_column="IsDepDelayed",
                            family="binomial", seed=42),
-        {"solver": ["IRLSM", "L_BFGS"]})
+        {"solver": ["IRLSM", "L_BFGS"], "feature_parallelism": [1, 2]})
     try:
-        with_lbfgs.train()
+        refused.train()
         raised = ""
     except NotImplementedError as e:
         raised = str(e)
-    _check("ROADMAP Queue 1 item 8" in raised,
-           f"model surface: the L_BFGS grid did not refuse ({raised!r})")
+    _check("ROADMAP Queue 1 item 1" in raised,
+           f"model surface: the feature-parallel grid did not refuse "
+           f"({raised!r})")
     out["grid_refusal"] = raised
     out["launches"] = dict(flat=hist.LAUNCHES, grouped=hist.GROUPED_LAUNCHES)
     print("model_surface_card_vs_cpu", json.dumps(out), flush=True)
@@ -3636,6 +3696,625 @@ def phase_model_surface_card_vs_cpu(dev, air) -> dict:
            f"model surface: {out['launches']} histogram launches on the "
            f"card, want 200")
     return out["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the rest of GLM: p-values, L_BFGS, constraints, alpha lists, interactions,
+# HGLM, the ordinal family, ANOVA GLM and ModelSelection
+# ---------------------------------------------------------------------------
+GLM_REST_ROWS = 100_000        # glm_rest_card_vs_cpu: rows per frame
+ANOVA_ROWS = 2_000_000         # anova_modelselection_higgs: ANOVA's rows
+BACKWARD_ROWS = 1_000_000      # anova_modelselection_higgs: backward's rows
+INTERACTION_PAIRS = [("UniqueCarrier", "Month"),
+                     ("UniqueCarrier", "Distance"),
+                     ("CRSDepTime", "Distance")]
+#: glm_constrained_higgs: natural-scale bounds on four coefficients, and
+#: f9 + f12 = 0.2 with f15 - f18 <= 0
+HIGGS_BOUNDS = {"names": ["f0", "f3", "f1", "f6"],
+                "lower_bounds": [0.0, -0.1, -0.05, 0.0],
+                "upper_bounds": [0.3, 0.1, 0.05, 0.1]}
+HIGGS_LINEAR = {"names": ["f9", "f12", "constant", "f15", "f18"],
+                "values": [1.0, 1.0, -0.2, 1.0, -1.0],
+                "types": ["Equal"] * 3 + ["LessThanEqual"] * 2,
+                "constraint_numbers": [0, 0, 0, 1, 1]}
+
+
+class _FitLaunches:
+    """While open, each single-block GLM fit's Gram launches and IRLS
+    iterations, in order (alpha-list members, ANOVA's and
+    ModelSelection's fits)."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.backend.kernels import gram
+        from h2o_tpu_torch.models.glm import GLM
+
+        self.orig, self.fits = GLM._build_single, []
+        orig, fits = self.orig, self.fits
+
+        def counted(builder, *a, **kw):
+            n0 = gram.GRAM_LAUNCHES
+            m = orig(builder, *a, **kw)
+            fits.append(dict(alpha=builder.params.alpha,
+                             launches=gram.GRAM_LAUNCHES - n0,
+                             iterations=m.output.scoring_history[-1][
+                                 "iterations"]))
+            return m
+        GLM._build_single = counted
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models.glm import GLM
+
+        GLM._build_single = self.orig
+
+
+def _gram_shape(shape: dict) -> dict:
+    return {k: shape[k] for k in ("rows", "cols", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err")}
+
+
+def phase_glm_pvalues_higgs(dev, fr) -> tuple[int, object, dict]:
+    """The HIGGS binomial GLM (IRLSM, lambda 0) with ``compute_p_values``:
+    Gram launches = IRLS iterations + 1 (the Fisher pass at the solution),
+    std errors finite and positive, p-values in [0, 1]; then the kernel
+    against its plain version on the Fisher pass's own inputs. Returns the
+    launches, the model and that check."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GramInputs() as kept:
+        model = _glm(fr, lambda_=0.0, compute_p_values=True)
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    iters = model.output.scoring_history[-1]["iterations"]
+    se = np.array(list(model.std_errs.values()))
+    pv = np.array(list(model.p_values.values()))
+    X, W, z = kept.last
+    shape = _gram_check(X, W, z, reps=5)
+    del kept, X, W, z
+    m = model.output.training_metrics
+    print("glm_pvalues_higgs", json.dumps(dict(
+        rows=fr.nrow, train_s=train_s, iterations=iters, launches=launches,
+        auc=m.auc, residual_deviance=m.residual_deviance,
+        std_err_range=[float(se.min()), float(se.max())],
+        p_value_range=[float(pv.min()), float(pv.max())],
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        gram_at_path=shape)), flush=True)
+    _check(launches["gram"] == iters + 1 and launches["flat"] == 0
+           and launches["grouped"] == 0,
+           f"glm_pvalues_higgs: launches {launches} for {iters} iterations")
+    _check(bool(np.all(np.isfinite(se)) and np.all(se > 0)),
+           "glm_pvalues_higgs: std errors")
+    _check(bool(np.all((pv >= 0) & (pv <= 1))), "glm_pvalues_higgs: p-values")
+    _check(bool(np.isfinite(m.auc)) and m.auc > 0.6,
+           f"glm_pvalues_higgs: AUC {m.auc}")
+    torch.cuda.empty_cache()
+    return launches["gram"], model, shape
+
+
+def phase_glm_lbfgs_higgs(dev, fr, irlsm) -> None:
+    """The same fit with ``solver="L_BFGS"``: no Gram launch, coefficients
+    within 1e-3 x max(1, |beta|) of the IRLSM fit, residual deviance within
+    a relative 1e-4; iterations and wall."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _glm(fr, lambda_=0.0, solver="L_BFGS")
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    coef = float(np.max(np.abs(model.beta - irlsm.beta)
+                        / np.maximum(1.0, np.abs(irlsm.beta))))
+    ra = model.output.training_metrics.residual_deviance
+    rb = irlsm.output.training_metrics.residual_deviance
+    dev_rel = abs(ra - rb) / abs(rb)
+    print("glm_lbfgs_higgs", json.dumps(dict(
+        rows=fr.nrow, train_s=train_s,
+        iterations=model.output.scoring_history[-1]["iterations"],
+        launches=launches, coef_max_rel_err_vs_irlsm=coef,
+        dev_rel_err_vs_irlsm=dev_rel,
+        auc=model.output.training_metrics.auc)), flush=True)
+    _check(sum(launches.values()) == 0,
+           f"glm_lbfgs_higgs: kernel launches {launches}")
+    _check(coef <= 1e-3, f"glm_lbfgs_higgs: coefficients {coef:.3g} from "
+                         f"IRLSM's (limit 1e-3)")
+    _check(dev_rel <= 1e-4, f"glm_lbfgs_higgs: deviance {dev_rel:.3g} from "
+                            f"IRLSM's (limit 1e-4)")
+
+
+def phase_glm_constrained_higgs(dev, fr) -> int:
+    """Box bounds on four coefficients plus one equality and one
+    inequality linear constraint (IRLSM, lambda 0): every residual within
+    1e-5, the constraints table printed; then ``alpha=[0, 0.5, 1.0]`` at
+    lambda 1e-4: ``best_alpha`` and each fit's Gram launches (= its
+    iterations). Returns the phase's Gram launches."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _glm(fr, lambda_=0.0, beta_constraints=HIGGS_BOUNDS,
+                 linear_constraints=HIGGS_LINEAR)
+    con_s = time.perf_counter() - t0
+    con_launches = _counts()["gram"]
+    iters = model.output.scoring_history[-1]["iterations"]
+    table = model.output.linear_constraints_table
+    print(table, flush=True)
+    c = model.coef()
+    box = [(n, c[n], lo, hi) for n, lo, hi in zip(
+        HIGGS_BOUNDS["names"], HIGGS_BOUNDS["lower_bounds"],
+        HIGGS_BOUNDS["upper_bounds"])]
+    residuals = [r[2] for r in table.cell_values]
+    t0 = time.perf_counter()
+    with _FitLaunches() as fl:
+        best = _glm(fr, lambda_=1e-4, alpha=[0.0, 0.5, 1.0])
+    alpha_s = time.perf_counter() - t0
+    print("glm_constrained_higgs", json.dumps(dict(
+        rows=fr.nrow, constrained_s=con_s, iterations=iters,
+        gram_launches=con_launches, residuals=residuals,
+        box=[[n, v] for n, v, _lo, _hi in box], alpha_list_s=alpha_s,
+        best_alpha=best.best_alpha, alpha_fits=fl.fits)), flush=True)
+    _check(con_launches == iters, f"glm_constrained_higgs: {con_launches} "
+                                  f"Gram launches for {iters} iterations")
+    _check(abs(residuals[0]) <= 1e-5 and residuals[1] <= 1e-5
+           and all(r[3] for r in table.cell_values),
+           f"glm_constrained_higgs: constraint residuals {residuals}")
+    _check(all(lo - 1e-6 <= v <= hi + 1e-6 for _n, v, lo, hi in box),
+           f"glm_constrained_higgs: bounds {box}")
+    _check(len(fl.fits) == 3 and all(f["launches"] == f["iterations"]
+                                     for f in fl.fits),
+           f"glm_constrained_higgs: alpha fits {fl.fits}")
+    _check(best.best_alpha in (0.0, 0.5, 1.0),
+           f"glm_constrained_higgs: best_alpha {best.best_alpha}")
+    return con_launches + sum(f["launches"] for f in fl.fits)
+
+
+def _interaction_glm(train, valid, **kw):
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=train,
+                             response_column="IsDepDelayed",
+                             family="binomial", seed=42,
+                             interaction_pairs=INTERACTION_PAIRS,
+                             validation_frame=valid, **kw)).train_model()
+
+
+def phase_glm_interactions_airlines(dev, train, valid) -> tuple[int, dict]:
+    """``import_cv_glm``'s one-hot binomial GLM (no CV) on the imported
+    train split with three interaction pairs — cat x cat (UniqueCarrier x
+    Month, capped at 100 combos), cat x num (UniqueCarrier x Distance) and
+    num x num (CRSDepTime x Distance): Gram launches = iterations, P and
+    peak memory; validation AUC through the replayed interactions finite
+    and above 0.6; a saved and loaded model predicting bit for bit alike;
+    then the kernel against its plain version on the fit's own design.
+    Returns the launches and that check."""
+    import torch
+
+    from h2o_tpu_torch import load_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GramInputs() as kept:
+        model = _interaction_glm(train, valid)
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    iters = model.output.scoring_history[-1]["iterations"]
+    P = len(model.dinfo.expanded_names) + 1
+    auc = model.output.validation_metrics.auc
+    t0 = time.perf_counter()
+    pred = model.predict(valid)
+    predict_s = time.perf_counter() - t0
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "glm_interactions.bin")
+    try:
+        model.save(path)
+        back = load_model(path, device=dev)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    same = all(torch.equal(a.data, b.data) for a, b in
+               zip(pred.vecs, back.predict(valid).vecs))
+    del pred, back
+    X, W, z = kept.last
+    shape = _gram_check(X, W, z, reps=3)
+    del kept, X, W, z
+    torch.cuda.empty_cache()
+    print("glm_interactions_airlines", json.dumps(dict(
+        train_rows=train.nrow, P=P, train_s=train_s, predict_s=predict_s,
+        iterations=iters, launches=launches, valid_auc=auc,
+        train_auc=model.output.training_metrics.auc, peak_mem_gb=peak,
+        interaction_columns=len(model.dinfo.expanded_names) - 689,
+        gram_at_path=shape)), flush=True)
+    _check(launches["gram"] == iters and launches["flat"] == 0
+           and launches["grouped"] == 0,
+           f"glm_interactions_airlines: launches {launches} for {iters} "
+           f"iterations")
+    _check(bool(np.isfinite(auc)) and auc > 0.6,
+           f"glm_interactions_airlines: validation AUC {auc}")
+    _check(same, "glm_interactions_airlines: the loaded model predicts "
+                 "differently")
+    _check(peak <= 60.0, f"glm_interactions_airlines: peak {peak:.1f} GiB")
+    return launches["gram"], shape
+
+
+def _hglm_frame(fr, seed: int = 300):
+    """Distance, CRSDepTime, DayOfWeek and Origin of an airlines frame, and
+    a gaussian response ``y`` drawn on the host: 1 + 0.5 z(Distance) - 0.3
+    z(CRSDepTime) + u[Origin] + e, u normal per Origin level (300) scaled
+    to a mean square of exactly 0.6^2, e normal per row scaled to a mean
+    square of exactly 1, so the draw's variances are the nominal ones;
+    rows whose Distance or CRSDepTime is NA take its mean. Returns the
+    frame and the draw's variances (mean u^2, mean e^2)."""
+    from h2o_tpu_torch import Vec
+
+    rng = np.random.default_rng(seed)
+    origin = fr.vec("Origin").to_numpy().astype(np.int64)
+    q = len(fr.vec("Origin").domain)
+    u = rng.normal(size=q)
+    u *= 0.6 / np.sqrt(np.mean(u * u))
+    e = rng.normal(size=fr.nrow)
+    e /= np.sqrt(np.mean(e * e))
+
+    def z(name):
+        x = fr.vec(name).to_numpy().astype(np.float64)
+        x = np.where(np.isnan(x), np.nanmean(x), x)
+        return (x - x.mean()) / x.std()
+
+    y = 1.0 + 0.5 * z("Distance") - 0.3 * z("CRSDepTime") + u[origin] + e
+    out = _columns(fr, ["Distance", "CRSDepTime", "DayOfWeek", "Origin"])
+    out.add("y", Vec.from_numpy(y.astype(np.float32), device=fr.device))
+    return out, float(np.mean(u * u)), float(np.mean(e * e))
+
+
+def _hglm(fr):
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=fr, response_column="y",
+                             family="gaussian", HGLM=True,
+                             random_columns=["Origin"],
+                             seed=42)).train_model()
+
+
+def phase_hglm_airlines(dev, train) -> None:
+    """HGLM on the imported train split with a response drawn on it
+    (``_hglm_frame``): no kernel launch (its cross products are float64
+    products and ``index_add_`` sums, as the reference's are plain
+    einsums), ``varfix`` and ``varranef`` within 10% of the draw's
+    variances, 1.0 and 0.36."""
+    import torch
+
+    fr, var_u, var_e = _hglm_frame(train)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _hglm(fr)
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    print("hglm_airlines", json.dumps(dict(
+        rows=fr.nrow, train_s=train_s, launches=launches,
+        iterations=model.output.scoring_history[-1]["iterations"],
+        varfix=model.varfix, varranef=model.varranef, draw_var_e=var_e,
+        draw_var_u=var_u, levels=len(model.random_domain),
+        rmse=model.output.training_metrics.rmse)), flush=True)
+    _check(sum(launches.values()) == 0, f"hglm_airlines: launches {launches}")
+    _check(abs(model.varfix - var_e) <= 0.1 * var_e,
+           f"hglm_airlines: varfix {model.varfix}, the draw's {var_e}")
+    _check(abs(model.varranef - var_u) <= 0.1 * var_u,
+           f"hglm_airlines: varranef {model.varranef}, the draw's {var_u}")
+
+
+def _ordinal(fr):
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    return GLM(GLMParameters(training_frame=fr, response_column="Cover_Type",
+                             family="ordinal", seed=42)).train_model()
+
+
+def phase_glm_ordinal_covtype(dev, fr) -> None:
+    """The ordinal family on the covertype-shaped frame, its 7 classes
+    taken as ordered: full-batch Adam, no kernel launch; thresholds
+    strictly increasing, mean per-class error below 6/7; steps and wall."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _ordinal(fr)
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    th = np.asarray(model.thresholds)
+    m = model.output.training_metrics
+    print("glm_ordinal_covtype", json.dumps(dict(
+        rows=fr.nrow, train_s=train_s,
+        steps=model.output.scoring_history[-1]["iterations"],
+        launches=launches, thresholds=th.tolist(), logloss=m.logloss,
+        mean_per_class_error=m.mean_per_class_error)), flush=True)
+    _check(sum(launches.values()) == 0,
+           f"glm_ordinal_covtype: kernel launches {launches}")
+    _check(bool(np.all(np.diff(th) > 0)),
+           f"glm_ordinal_covtype: thresholds {th}")
+    _check(m.mean_per_class_error < 6 / 7,
+           f"glm_ordinal_covtype: mean per-class error "
+           f"{m.mean_per_class_error}")
+
+
+def _with_reg(fr, seed: int = 28):
+    """The HIGGS features and a gaussian response drawn on the host:
+    0.5 f0 - 0.25 f3 + 0.3 f6 + N(0, 1)."""
+    from h2o_tpu_torch import Vec
+
+    e = np.random.default_rng(seed).normal(size=fr.nrow)
+    reg = (0.5 * fr.vec("f0").to_numpy() - 0.25 * fr.vec("f3").to_numpy()
+           + 0.3 * fr.vec("f6").to_numpy() + e).astype(np.float32)
+    out = _columns(fr, [f"f{j}" for j in range(HIGGS_F)])
+    out.add("reg", Vec.from_numpy(reg, device=fr.device))
+    return out
+
+
+def _columns(fr, names):
+    """The named columns of ``fr`` as a frame of their own (no copy). The
+    builders over GLM are given such frames, not ``ignored_columns``: their
+    sub-fits replace the user's ignored columns by the other terms, in the
+    reference as here (ROADMAP Queue 3 item 22)."""
+    from h2o_tpu_torch import Frame
+
+    return Frame(list(names), [fr.vec(n) for n in names])
+
+
+def _anova(fr):
+    from h2o_tpu_torch import ANOVAGLM, ANOVAGLMParameters
+
+    return ANOVAGLM(ANOVAGLMParameters(
+        training_frame=_columns(fr, [f"f{j}" for j in range(5)]
+                                + ["response"]),
+        response_column="response", family="binomial", lambda_=0.0,
+        seed=42)).train_model()
+
+
+def _maxr(fr):
+    from h2o_tpu_torch import ModelSelection, ModelSelectionParameters
+
+    return ModelSelection(ModelSelectionParameters(
+        training_frame=fr, response_column="reg", family="gaussian",
+        mode="maxr", seed=42)).train_model()
+
+
+def _backward(fr):
+    from h2o_tpu_torch import ModelSelection, ModelSelectionParameters
+
+    return ModelSelection(ModelSelectionParameters(
+        training_frame=_columns(fr, [f"f{j}" for j in range(8)]
+                                + ["response"]),
+        response_column="response", family="binomial", mode="backward",
+        p_values_threshold=0.05, seed=42)).train_model()
+
+
+def phase_anova_modelselection_higgs(dev, higgs) -> tuple[int, dict]:
+    """ANOVA GLM over 5 HIGGS predictors with their pairs (15 terms, 16
+    binomial fits) at 2M rows; ModelSelection ``maxr`` (gaussian, a drawn
+    response on f0, f3, f6) over all 28 predictors at 11M rows — one Gram
+    launch of [X | 1 | y] in its z = None form, then held against the
+    plain version on those inputs; ``backward`` (binomial) over 8
+    predictors at 1M rows with a ``p_values_threshold``. Launches = the
+    fits' IRLS iterations + 1. Returns the launches and the sweep Gram's
+    check."""
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram
+    from h2o_tpu_torch.models import modelselection
+
+    out = {}
+    _reset_counts()
+    sub = higgs.take(np.arange(ANOVA_ROWS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FitLaunches() as fl:
+        anova = _anova(sub)
+    out["anova"] = dict(rows=sub.nrow, fits=len(fl.fits),
+                        wall_s=time.perf_counter() - t0,
+                        launches=sum(f["launches"] for f in fl.fits),
+                        iterations=sum(f["iterations"] for f in fl.fits),
+                        table=[[r["term"], r["df"], r["deviance"],
+                                r["p_value"]] for r in anova.result()])
+    del sub
+    reg = _with_reg(higgs)
+    n0 = _counts()["gram"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GramInputs(modelselection) as kept:
+        maxr = _maxr(reg)
+    sweep_s = time.perf_counter() - t0
+    best3 = next(r["predictors"] for r in maxr.result()
+                 if len(r["predictors"]) == 3)
+    out["maxr"] = dict(rows=reg.nrow, wall_s=sweep_s,
+                       launches=_counts()["gram"] - n0,
+                       sizes=len(maxr.result()), best3=best3,
+                       r2=[r["r2"] for r in maxr.result()][:5])
+    Z, w, _ = kept.last
+    n_path = gram.GRAM_LAUNCHES
+    shape = _gram_check(Z, w, None, reps=5)
+    gram.GRAM_LAUNCHES = n_path   # the check's launches are not the path's
+    del kept, Z, w, reg
+    torch.cuda.empty_cache()
+    sub = higgs.take(np.arange(BACKWARD_ROWS))
+    t0 = time.perf_counter()
+    with _FitLaunches() as fb:
+        back = _backward(sub)
+    out["backward"] = dict(rows=sub.nrow, wall_s=time.perf_counter() - t0,
+                           fits=len(fb.fits),
+                           launches=sum(f["launches"] for f in fb.fits),
+                           iterations=sum(f["iterations"] for f in fb.fits),
+                           subsets=[r["predictors"] for r in back.result()])
+    del sub
+    launches = _counts()
+    out.update(launches=launches, sweep_gram=shape)
+    print("anova_modelselection_higgs", json.dumps(out), flush=True)
+    tbl = {r["term"]: r for r in anova.result()}
+    _check(len(tbl) == 15 and out["anova"]["fits"] == 16,
+           f"anova: {len(tbl)} terms, {out['anova']['fits']} fits")
+    _check(tbl["f0"]["p_value"] < 1e-6, f"anova: f0 p-value "
+                                        f"{tbl['f0']['p_value']}")
+    _check(out["anova"]["launches"] == out["anova"]["iterations"],
+           f"anova: {out['anova']}")
+    _check(out["maxr"]["launches"] == 1 and set(best3) == {"f0", "f3", "f6"},
+           f"maxr: {out['maxr']}")
+    _check(out["backward"]["launches"] == out["backward"]["iterations"]
+           and len(back.result()) == 8, f"backward: {out['backward']}")
+    want = (out["anova"]["launches"] + 1 + out["backward"]["launches"])
+    _check(launches["gram"] == want and launches["flat"] == 0
+           and launches["grouped"] == 0,
+           f"anova_modelselection_higgs: launches {launches}, want {want}")
+    return launches["gram"], shape
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+
+
+def phase_glm_rest_card_vs_cpu(dev, air) -> int:
+    """Every option of this slice at 100,000 rows on the card and on the
+    CPU: coefficients within 1e-4 x max(1, |beta|) (IRLSM with p-values,
+    L_BFGS, box and linear constraints, the alpha list, gamma and tweedie
+    with ``ml`` dispersion, interactions, the ordinal family); std errors
+    and p-values within 1e-5 relative (p-values below 1e-7 within 1e-12
+    absolute), dispersion estimates within 1e-5 relative; HGLM's variance
+    components within 1e-5 relative; the same ANOVA terms (each LR
+    statistic within 1e-6 of its reduced model's deviance, each p-value
+    inside the band that tolerance puts on the CPU's: a weak term's LR is
+    a difference of two float32 sums of ~1e5, so its p-value moves by up
+    to ~1e-2) and the same ModelSelection subsets. Returns the card's Gram
+    launches."""
+    from h2o_tpu_torch import GLM, GLMParameters
+
+    rows = GLM_REST_ROWS
+    out, launches = {}, 0
+    higgs = {d: _higgs_frame(rows, d) for d in (dev, "cpu")}
+    opt = {d: _higgs_option_frame(rows, d) for d in (dev, "cpu")}
+    airs = {dev: air, "cpu": _cpu_frame(air)}
+    cov = {d: _covtype_frame(rows, d) for d in (dev, "cpu")}
+
+    def pair(name, make, frames):
+        nonlocal launches
+        fits, secs = {}, {}
+        for d, fr in frames.items():
+            _reset_counts()
+            t0 = time.perf_counter()
+            fits[d] = make(fr)
+            secs[d] = time.perf_counter() - t0
+            if d != "cpu":
+                launches += _counts()["gram"]
+        a, b = fits[dev], fits["cpu"]
+        row = dict(card_s=secs[dev], cpu_s=secs["cpu"])
+        if hasattr(a, "beta"):
+            ba, bb = np.asarray(a.beta), np.asarray(b.beta)
+            row["coef_max_rel_err"] = _rel(ba, bb)
+            _check(row["coef_max_rel_err"] <= GLM_COEF_TOL,
+                   f"glm_rest {name}: coefficients off by "
+                   f"{row['coef_max_rel_err']:.3g}")
+        out[name] = row
+        return a, b, row
+
+    def opt_glm(family, **kw):
+        def make(fr):
+            return GLM(GLMParameters(
+                training_frame=fr, response_column="pos", family=family,
+                lambda_=0.0, dispersion_parameter_method="ml", seed=42,
+                ignored_columns=[n for n in fr.names if n.startswith("q")]
+                + ["reg"], **kw)).train_model()
+        return make
+
+    a, b, row = pair("p_values", lambda fr: _glm(
+        fr, lambda_=0.0, compute_p_values=True), higgs)
+    names = list(b.p_values)
+    for k in ("std_errs", "p_values"):
+        va = np.array([getattr(a, k)[n] for n in names])
+        vb = np.array([getattr(b, k)[n] for n in names])
+        err = np.abs(va - vb)
+        row[f"{k}_max_rel_err"] = float(np.max(err / np.maximum(vb, 1e-300)))
+        ok = (err <= 1e-5 * vb) | ((vb < 1e-7) & (err <= 1e-12))
+        _check(bool(ok.all()), f"glm_rest {k}: {row}")
+    pair("lbfgs", lambda fr: _glm(fr, lambda_=0.0, solver="L_BFGS"), higgs)
+    pair("constrained", lambda fr: _glm(
+        fr, lambda_=0.0, beta_constraints=HIGGS_BOUNDS,
+        linear_constraints=HIGGS_LINEAR), higgs)
+    a, b, row = pair("alpha_list", lambda fr: _glm(
+        fr, lambda_=1e-4, alpha=[0.0, 0.5, 1.0]), higgs)
+    _check(a.best_alpha == b.best_alpha, f"glm_rest alpha: {a.best_alpha} "
+                                         f"against {b.best_alpha}")
+    for fam, kw in (("gamma", {}), ("tweedie",
+                                    dict(tweedie_variance_power=1.5))):
+        a, b, row = pair(f"{fam}_ml", opt_glm(fam, **kw), opt)
+        row["dispersion"] = [a.dispersion_estimated, b.dispersion_estimated]
+        _check(abs(a.dispersion_estimated - b.dispersion_estimated)
+               <= 1e-5 * b.dispersion_estimated,
+               f"glm_rest {fam} ml dispersion: {row['dispersion']}")
+    a, b, row = pair("interactions", lambda fr: _interaction_glm(fr, None),
+                     airs)
+    row["P"] = len(b.dinfo.expanded_names) + 1
+    hg = {d: _hglm_frame(fr)[0] for d, fr in airs.items()}
+    a, b, row = pair("hglm", _hglm, hg)
+    row.update(varfix=[a.varfix, b.varfix], varranef=[a.varranef,
+                                                      b.varranef])
+    for k in ("varfix", "varranef"):
+        _check(abs(getattr(a, k) - getattr(b, k)) <= 1e-5 * getattr(b, k),
+               f"glm_rest hglm {k}: {row[k]}")
+    a, b, row = pair("ordinal", _ordinal, cov)
+    row["steps"] = [m.output.scoring_history[-1]["iterations"]
+                    for m in (a, b)]
+    _check(_rel(a.thresholds, b.thresholds) <= GLM_COEF_TOL,
+           f"glm_rest ordinal thresholds: {a.thresholds} against "
+           f"{b.thresholds}")
+    a, b, row = pair("anova", _anova, higgs)
+    ta, tb = a.result(), b.result()
+    _check([r["term"] for r in ta] == [r["term"] for r in tb]
+           and [r["df"] for r in ta] == [r["df"] for r in tb],
+           "glm_rest anova: terms differ")
+    # each LR statistic is a difference of two float32 deviance sums, the
+    # reduced one the larger: within 1e-6 of it; a p-value follows from
+    # its LR, so the card's must lie between the CPU's LR's p-values at
+    # the ends of that band
+    from h2o_tpu_torch.models.anovaglm import chi2_sf
+
+    full = b.full_model.output.training_metrics.residual_deviance
+    row["lr_max_err"] = max(abs(x["deviance"] - y["deviance"]) / (
+        full + y["deviance"]) for x, y in zip(ta, tb))
+    row["p_max_err"] = max(abs(x["p_value"] - y["p_value"])
+                           for x, y in zip(ta, tb))
+    band = [(chi2_sf(y["deviance"] + 1e-6 * (full + y["deviance"]),
+                     y["df"]) - 1e-12,
+             chi2_sf(max(y["deviance"] - 1e-6 * (full + y["deviance"]), 0.0),
+                     y["df"]) + 1e-12) for y in tb]
+    _check(row["lr_max_err"] <= 1e-6
+           and all(lo <= x["p_value"] <= hi
+                   for x, (lo, hi) in zip(ta, band)),
+           f"glm_rest anova: {row}")
+    regs = {d: _with_reg(fr) for d, fr in higgs.items()}
+    for name, make, frames in (("maxr", _maxr, regs),
+                               ("backward", _backward, higgs)):
+        a, b, row = pair(name, make, frames)
+        sa = [r["predictors"] for r in a.result()]
+        sb = [r["predictors"] for r in b.result()]
+        row["sizes"] = len(sa)
+        _check(sa == sb, f"glm_rest {name}: subsets differ")
+        ca = np.array([v for r in a.result() for v in r["coefs"].values()])
+        cb = np.array([v for r in b.result() for v in r["coefs"].values()])
+        row["coef_max_rel_err"] = _rel(ca, cb)
+        _check(row["coef_max_rel_err"] <= GLM_COEF_TOL,
+               f"glm_rest {name}: coefficients off by "
+               f"{row['coef_max_rel_err']:.3g}")
+    print("glm_rest_card_vs_cpu", json.dumps(dict(
+        rows=rows, fits=out, card_gram_launches=launches)), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -3701,6 +4380,15 @@ def main() -> int:
                                                           "glm_train"))
     run("glm_cod_train", lambda d: _glm_train(
         d, higgs, "glm_cod_train", solver="COORDINATE_DESCENT"))
+    pv_launches, irlsm, gram_at_pvalues = run(
+        "glm_pvalues_higgs", lambda d: phase_glm_pvalues_higgs(d, higgs))
+    run("glm_lbfgs_higgs", lambda d: phase_glm_lbfgs_higgs(d, higgs, irlsm))
+    del irlsm
+    con_launches = run("glm_constrained_higgs",
+                       lambda d: phase_glm_constrained_higgs(d, higgs))
+    ams_launches, gram_at_sweep = run(
+        "anova_modelselection_higgs",
+        lambda d: phase_anova_modelselection_higgs(d, higgs))
     del higgs
     run("glm_card_vs_cpu", phase_glm_card_vs_cpu)
     run("gbm_options_card_vs_cpu", phase_gbm_options_card_vs_cpu)
@@ -3733,10 +4421,16 @@ def main() -> int:
         "import_cv_glm", lambda d: phase_import_cv_glm(d, train, valid))
     enc = run("encoding_airlines",
               lambda d: phase_encoding_airlines(d, train, valid))
+    inter_launches, gram_at_inter = run(
+        "glm_interactions_airlines",
+        lambda d: phase_glm_interactions_airlines(d, train, valid))
+    run("hglm_airlines", lambda d: phase_hglm_airlines(d, train))
     air = train.take(np.arange(SURFACE_CPU_ROWS))
     del train, valid, calib
     surface_launches = run("model_surface_card_vs_cpu",
                            lambda d: phase_model_surface_card_vs_cpu(d, air))
+    rest_launches = run("glm_rest_card_vs_cpu",
+                        lambda d: phase_glm_rest_card_vs_cpu(d, air))
     del air
     run("import_cv_card_vs_cpu", phase_import_cv_card_vs_cpu)
     t0 = time.perf_counter()
@@ -3761,6 +4455,7 @@ def main() -> int:
     mglm_launches, gram_at_block = run(
         "glm_multinomial_covtype",
         lambda d: phase_glm_multinomial_covtype(d, cov))
+    run("glm_ordinal_covtype", lambda d: phase_glm_ordinal_covtype(d, cov))
     ens_launches = run("ensemble_covtype",
                        lambda d: phase_ensemble_covtype(d, cov))
     del cov
@@ -3794,7 +4489,12 @@ def main() -> int:
                           automl_higgs=automl_launches["gram"],
                           glm_multinomial_covtype=mglm_launches,
                           ensemble_covtype=ens_launches["gram"],
-                          automl_card_vs_cpu=cvc_launches["gram"])}
+                          automl_card_vs_cpu=cvc_launches["gram"],
+                          glm_pvalues_higgs=pv_launches,
+                          glm_constrained_higgs=con_launches,
+                          anova_modelselection_higgs=ams_launches,
+                          glm_interactions_airlines=inter_launches,
+                          glm_rest_card_vs_cpu=rest_launches)}
     for path, counts in (("encoding_airlines", enc["launches"]),
                          ("model_surface_card_vs_cpu", surface_launches)):
         paths["level_hist"][path] = counts["flat"]
@@ -3845,16 +4545,21 @@ def main() -> int:
                                    hist_at_path["max_abs_err"])
         if name == "gram":
             e["import_cv_glm_shape"] = gram_at_path
-            e["pca_mnist_shape"] = {k: gram_at_pca[k] for k in (
-                "rows", "cols", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
-            e["multinomial_block_shape"] = {k: gram_at_block[k] for k in (
-                "rows", "cols", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
+            e["pca_mnist_shape"] = _gram_shape(gram_at_pca)
+            e["multinomial_block_shape"] = _gram_shape(gram_at_block)
+            # the rest of GLM's new shapes: the Fisher pass at HIGGS's
+            # design, the interaction design and ModelSelection's
+            # [X | 1 | y] (z = None)
+            e["pvalues_shape"] = _gram_shape(gram_at_pvalues)
+            e["interactions_shape"] = _gram_shape(gram_at_inter)
+            e["modelselection_shape"] = _gram_shape(gram_at_sweep)
             e["max_abs_err"] = max(e["max_abs_err"],
                                    gram_at_path["max_abs_err"],
                                    gram_at_pca["max_abs_err"],
-                                   gram_at_block["max_abs_err"])
+                                   gram_at_block["max_abs_err"],
+                                   gram_at_pvalues["max_abs_err"],
+                                   gram_at_inter["max_abs_err"],
+                                   gram_at_sweep["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,14 @@ level-histogram kernel (flat or width-bucketed plans,
 column sampling on ``jax.random``'s threefry streams reproduced bit for bit
 (``utils/threefry.py``), categorical set splits, out-of-bag scoring, and
 binomial/multinomial/regression metrics; GLM (gaussian,
-binomial, quasibinomial, poisson, gamma, tweedie, negativebinomial) through
-IRLSM or coordinate descent, with or without lambda search — ``DataInfo``'s
+binomial, quasibinomial, poisson, gamma, tweedie, negativebinomial,
+multinomial, ordinal, HGLM) through IRLSM, coordinate descent or L_BFGS,
+with or without lambda search, with alpha lists, box and linear
+constraints, interactions, p-values and ``ml`` dispersion — ``DataInfo``'s
 design expansion (``models/datainfo.py``) and the IRLS loop over the weighted
 Gram kernel (``backend/kernels/gram.py``, CUDA C++ in ``csrc/gram.cu``), the
-small solves on the host. Unsupervised and neural models: DeepLearning
+small solves on the host; ``ANOVAGLM`` and ``ModelSelection`` over it.
+Unsupervised and neural models: DeepLearning
 (MLP and autoencoder, ``models/deeplearning.py``: autograd gradients,
 optax's ADADELTA and momentum SGD written out, the reference's init,
 shuffle and dropout streams), KMeans (``models/kmeans.py``) and PCA/SVD
@@ -61,6 +64,7 @@ from .frame.frame import Frame
 from .frame.split import split_frame
 from .frame.vec import Vec
 from .io.parser import ParseSetup, import_file
+from .models.anovaglm import ANOVAGLM, ANOVAGLMModel, ANOVAGLMParameters
 from .models.automl import H2OAutoML, Leaderboard
 from .models.deeplearning import (DeepLearning, DeepLearningModel,
                                   DeepLearningParameters)
@@ -74,6 +78,8 @@ from .models.glm import GLM, GLMModel, GLMMultinomialModel, GLMParameters
 from .models.grid import (Grid, GridSearch, SearchCriteria, export_grid,
                           import_grid)
 from .models.kmeans import KMeans, KMeansModel, KMeansParameters
+from .models.modelselection import (ModelSelection, ModelSelectionModel,
+                                    ModelSelectionParameters)
 from .models.model_base import resume_training
 from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
     SVDParameters
@@ -91,4 +97,7 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "GLMMultinomialModel", "Grid", "GridSearch", "SearchCriteria",
            "export_grid", "import_grid", "StackedEnsemble",
            "StackedEnsembleModel", "StackedEnsembleParameters", "H2OAutoML",
-           "Leaderboard", "partial_dependence", "permutation_varimp"]
+           "Leaderboard", "partial_dependence", "permutation_varimp",
+           "ANOVAGLM", "ANOVAGLMModel", "ANOVAGLMParameters",
+           "ModelSelection", "ModelSelectionModel",
+           "ModelSelectionParameters"]

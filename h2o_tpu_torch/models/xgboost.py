@@ -115,8 +115,8 @@ class XGBoost(GBM):
         """xgboost's L1/L2-penalised linear booster as the elastic-net GLM
         on the raw features. xgboost's penalties are absolute, so
         alpha * lambda * nrow = reg_alpha and (1 - alpha) * lambda * nrow =
-        reg_lambda fix (lambda, alpha). A multinomial response is refused
-        by the GLM (ROADMAP Queue 1 item 8)."""
+        reg_lambda fix (lambda, alpha). A multinomial response takes the
+        multinomial GLM (IRLSM), as in the reference."""
         p = self.params
         fr = p.training_frame
         nrow = max(int(fr.nrow), 1)

@@ -239,7 +239,10 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.kmeans, h2o_tpu_torch.models.pca, "
             "h2o_tpu_torch.models.grid, h2o_tpu_torch.models.automl, "
             "h2o_tpu_torch.models.ensemble, h2o_tpu_torch.models.explain, "
-            "h2o_tpu_torch.models.tree.shap, h2o_tpu_torch.utils.linalg; "
+            "h2o_tpu_torch.models.tree.shap, h2o_tpu_torch.utils.linalg, "
+            "h2o_tpu_torch.models.anovaglm, "
+            "h2o_tpu_torch.models.modelselection, "
+            "h2o_tpu_torch.utils.optim; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -254,21 +257,26 @@ def _one_tree(fr):
 
 
 def _grid_lbfgs(fr, _tmp):
+    """A GLM grid that meets a refusal: L_BFGS trains now, so the combo
+    that refuses is ``feature_parallelism=2`` (the case keeps its id)."""
     from h2o_tpu_torch import GLM, GLMParameters, GridSearch
 
     GridSearch(GLM, GLMParameters(training_frame=fr, response_column="y",
                                   family="binomial"),
-               {"solver": ["IRLSM", "L_BFGS"]}).train()
+               {"solver": ["IRLSM", "L_BFGS"],
+                "feature_parallelism": [1, 2]}).train()
 
 
 def _automl_lbfgs(fr, _tmp):
+    """An AutoML step that meets a refusal (``feature_parallelism=2``; the
+    case keeps its id from when L_BFGS was refused)."""
     from h2o_tpu_torch import H2OAutoML
     from h2o_tpu_torch.models import automl
 
     plan = [automl.Step("GBM", "def_1", automl._model_step(
                 "gbm", dict(ntrees=1, max_depth=2))),
             automl.Step("GLM", "lbfgs", automl._model_step(
-                "glm", dict(solver="L_BFGS")))]
+                "glm", dict(solver="L_BFGS", feature_parallelism=2)))]
     H2OAutoML(max_models=2, nfolds=0, seed=1,
               modeling_plan=plan).train(y="y", training_frame=fr)
 
@@ -286,8 +294,8 @@ _REFUSALS = {
     "python_udf": (13, lambda fr, d: GBM(GBMParameters(
         training_frame=fr, custom_metric_func="python:key=mod.Metric",
         **KW))),
-    "grid_lbfgs": (8, _grid_lbfgs),
-    "automl_lbfgs": (8, _automl_lbfgs),
+    "grid_lbfgs": (1, _grid_lbfgs),
+    "automl_lbfgs": (1, _automl_lbfgs),
 }
 
 
@@ -312,7 +320,7 @@ def test_out_of_slice_options_raise(change, tmp_path):
     test_torch_recovery.py). The model surface's refusals name their
     items: MOJO/POJO export, ``score_raw`` (serving), a custom metric
     uploaded as a ``"python:"`` reference; a grid or an AutoML run that
-    meets a refusal (GLM's L_BFGS) raises it."""
+    meets a refusal (GLM's ``feature_parallelism=2``) raises it."""
     if change == "goss":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.TreeConfig(goss=(0.2, 0.1)).check_supported()

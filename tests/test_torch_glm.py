@@ -1,6 +1,6 @@
 """Port parity: DataInfo's design expansion and the GLM build of
 ``h2o_tpu_torch`` against the reference (``h2o_tpu/models``), plus the
-carry-over of a reference model, and the GLM refusals.
+carry-over of a reference model, and what GLM still refuses.
 
 Each GLM case fits the same model in both packages on the same frame
 (numpy data from a seed; the reference on a one-device mesh), once per
@@ -229,20 +229,18 @@ def test_datainfo_expand_matches_the_reference(mvh):
 
 
 @pytest.mark.parametrize("change", [
-    dict(interaction_pairs=[("f0", "f1")]), dict(family="ordinal"),
-    dict(HGLM=True),
-    dict(interactions=["f0", "f1"]),
-    dict(beta_constraints={"names": ["f0"], "lower_bounds": [0.0]}),
-    dict(linear_constraints={"names": ["f0", "f1"], "values": [1.0, 1.0],
-                             "types": ["Equal", "Equal"],
-                             "constraint_numbers": [0, 0]}),
-    dict(compute_p_values=True), dict(solver="L_BFGS"),
-    dict(feature_parallelism=2), dict(alpha=[0.1, 0.5]),
-    dict(dispersion_parameter_method="ml"),
+    dict(feature_parallelism=2),
+    dict(feature_parallelism=4, family="multinomial"),
 ])
 def test_out_of_slice_options_raise(change):
+    """What GLM still refuses: ``feature_parallelism`` > 1 lays the design
+    over several cards (ROADMAP Queue 1 item 1, step M). The other options
+    this test once refused (ordinal, HGLM, interactions, beta and linear
+    constraints, p-values, L_BFGS, alpha lists, ``ml`` dispersion) train
+    now; their parity with the reference is in ``test_torch_glm_options.py``
+    and ``test_torch_glm_models.py``."""
     _jfr, fr, _one = _frames("binomial", n=500)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1\\b"):
         GLM(GLMParameters(training_frame=fr, response_column="y",
                           **change)).train_model()
 
