@@ -21,7 +21,8 @@ of the tree models (TreeSHAP, node covers, leaf assignments, staged
 predictions, categorical encodings, custom metrics); and the rest of GLM
 (p-values, L_BFGS, box and linear constraints, alpha lists, ``ml``
 dispersion, interactions, HGLM, the ordinal family) with ANOVA GLM and
-ModelSelection over it. In order:
+ModelSelection over it; and the Gram's other users (GAM with all four
+spline bases, RuleFit over a streamed rule design, CoxPH). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -61,9 +62,10 @@ ModelSelection over it. In order:
    leaf values summed within 1e-5 of ``predict``'s margin), the leaf paths
    (naming those nodes) and the staged predictions (the last within 1e-6
    of ``predict``'s p1); walls and peak memory, no kernel launch;
-3. ``card_vs_cpu``: the same GBM on 1M rows x 5 trees on the card and on
-   the CPU: equal forest structure (split features, NA directions, split
-   bins), leaf values and predictions within 1e-5;
+3. ``card_vs_cpu``: the same GBM on 250,000 rows x 5 trees
+   (``CARD_CPU_ROWS``, cut from 1M) on the card and on the CPU: equal
+   forest structure (split features, NA directions, split bins), leaf
+   values and predictions within 1e-5;
 4. ``level_hist_grouped``: the same checks and timings for the kernel
    through its grouped wrapper at the airlines plan (9 int16 features in
    width buckets 32/16/8/301, 5% NA) at 11,001,856 rows and at the airlines
@@ -121,7 +123,7 @@ ModelSelection over it. In order:
     relative 1e-5, predictions within 1e-4 (a one-iteration difference in
     where IRLS stops moves beta by up to ``beta_epsilon``); the card's
     lambda search makes iterations + 1 Gram launches (its lambda_max pass);
-10b. ``gbm_options_card_vs_cpu``: 100,000 HIGGS rows with a regression
+10b. ``gbm_options_card_vs_cpu``: 50,000 HIGGS rows with a regression
     response and a positive one from the generator's latent; 5 trees each
     of poisson, gamma, tweedie, laplace, quantile (alpha 0.9), huber (alpha
     0.9), gaussian with two monotone constraints and one interaction
@@ -160,7 +162,7 @@ ModelSelection over it. In order:
     parameters; 2,520 launches of the plan's wrapper between the two runs;
     prints the frame save's seconds and MB/s, the state writes and their
     seconds, and the resume wall against the uninterrupted wall;
-14. ``drf_card_vs_cpu``: that DRF on 30,000 rows x 3 iterations on the card
+14. ``drf_card_vs_cpu``: that DRF on 30,000 rows x 2 iterations on the card
     and on the CPU: equal split features, NA directions, split bins, leaf
     values and out-of-bag counts (integer channels), predictions within
     1e-5; and ``model_performance`` under each of the four multinomial
@@ -178,9 +180,11 @@ ModelSelection over it. In order:
     airlines demos do, and requires the types, the 8 domain sizes, NA at
     exactly the blanked cells, every level (by name) and every float32
     value as generated; prints the write and parse walls, MB/s and rows/s;
-    then writes the same rows with the header and string levels quoted (R's
-    ``write.csv``), parses that through the same call and requires the
-    frame bit-equal to the unquoted parse, printing its wall and MB/s;
+    then writes the generator's first 1,000,000 rows (``QUOTED_ROWS``, cut
+    from the whole file) with the header and string levels quoted (R's
+    ``write.csv``) and plain, parses both through the same call and
+    requires the frames bit-equal, printing the quoted parse's wall and
+    MB/s;
 15b. ``compress_airlines``: ``compress_frame`` on that frame: each
     column's codec, its coded bytes against raw float32, a bit-equal decode
     on the card; the batched code-space rollups against the raw ones (NA
@@ -282,7 +286,9 @@ ModelSelection over it. In order:
     (on an H100 the float32 one misses the float64 Gram by 3.1e-5 of an
     entry's mass there, the kernel by 1.8e-6; its distance is printed),
     with the timings of ``gram``;
-23. ``recovery_dl``: ``dl_mnist``'s model at 2 epochs (cut from 3) with
+23. ``recovery_dl``: ``dl_mnist``'s model on the frame's first 20,000
+    rows (``RECOVERY_DL_ROWS``, cut from 60,000) at 2 epochs (cut from 3)
+    with
     ``auto_recovery_dir`` (a state write every epoch), killed at
     ``train.dl.epoch:raise(preempt)@2`` and resumed with
     ``resume_training``: weights and optimizer slots bit-equal to an
@@ -294,11 +300,11 @@ ModelSelection over it. In order:
     within 1e-5 relative; PCA (k = 10) standard deviations within 1e-5
     relative, vectors equal up to sign (|cos| >= 1 - 1e-5) where the
     eigenvalues are separated by more than 1e-3 relative;
-25. ``automl_higgs``: ``H2OAutoML(max_models=13, nfolds=2, seed=42,
-    exclude_algos=["DeepLearning"])`` (``AUTOML_FOLDS``, cut from 5) on
-    250,000 HIGGS-shaped rows at the full 28 features — 3 XGBoost, the
-    lambda-search GLM, DRF, GBM def_1..def_5, XRT, a 2-model GBM grid,
-    both ensembles: each step's
+25. ``automl_higgs``: ``H2OAutoML(max_models=10, nfolds=2, seed=42,
+    exclude_algos=["DeepLearning"])`` (``AUTOML_MAX_MODELS``, cut from 13;
+    ``AUTOML_FOLDS``, cut from 5) on 250,000 HIGGS-shaped rows at the full
+    28 features — 3 XGBoost, the lambda-search GLM, DRF, GBM
+    def_1..def_5, both ensembles: each step's
     wall, launches and deepest level width, peak memory, the leaderboard
     (AUCs finite, above 0.6, sorted; no step failed); the leader predicts,
     partial dependence on two columns and permutation importance are
@@ -316,7 +322,8 @@ ModelSelection over it. In order:
     trees) and multinomial GLM under the AUTO metalearner: 21 level-one
     columns, class probabilities finite, rows summing to 1 within 1e-5;
 28. ``automl_card_vs_cpu``: a plan with every algo (DeepLearning and a
-    grid included) at 20,000 HIGGS rows with 3 folds, card and CPU: the
+    grid included) at 20,000 HIGGS rows with 2 folds (``AUTOML_CPU_FOLDS``,
+    cut from 3), card and CPU: the
     same steps and combos, metrics within 1e-4, every ensemble's
     metalearner coefficients within 1e-4 x max(1, |beta|) and its
     predictions within 1e-4; the multinomial GLM on 20,000 covertype rows
@@ -324,7 +331,36 @@ ModelSelection over it. In order:
 29. ``grid_recovery``: a 4-combo GBM grid on 100,000 HIGGS rows killed at
     its third manifest write and resumed: bit-equal to the uninterrupted
     grid; and the grid with ``parallelism=2`` on the card: bit-equal to
-    the sequential grid, with as many flat launches.
+    the sequential grid, with as many flat launches;
+30. ``gam_higgs`` (after ``anova_modelselection_higgs``): ``bench.py``'s
+    GAM (binomial, IRLSM, cr bases at 8 knots on f1, f2 and f4) on the 11M
+    HIGGS frame, then thin plate on f1, monotone I-splines on f0 and
+    P-splines on f4 (``GAM_BS``): Gram launches = IRLS iterations, residual
+    below null deviance, AUC above 0.6, predictions through the replayed
+    bases within 1e-4 of the standalone scorer's numpy bases, the
+    I-spline smooth non-decreasing; then the Gram kernel against its
+    plain version on GAM's 11,001,856 x 50 design;
+31. ``rulefit_higgs``: ``bench.py``'s RuleFit (rules and linear terms,
+    rule length 3, 50 depth-3 DRF trees) on that frame: the streamed
+    design, 150 flat launches, Gram launches = IRLS steps x blocks, as
+    many rules as the forest's distinct depth-3 paths, supports in
+    [0, 1], AUC above 0.6; then the kernel against its plain version on
+    the first streamed block's design, IRLS weights and working response;
+32. ``coxph_survival``: CoxPH (Efron ties, 4 strata) twice on a generated
+    1,000,000-row survival frame (``_survival_cols``: 10 covariates, a
+    5-level categorical, integer follow-up times of 1-2,000 days, ~35%
+    events, known coefficients): bit-equal twice, Gram launches = 2 x
+    Newton passes, the log-likelihood rising, coefficients within 0.05 of
+    the truth, concordance above 0.5, cumulative baseline hazards that do
+    not fall and ``survfit`` curves in [0, 1] that do not rise; then the
+    kernel on a Newton pass's own design and risk weights (z = None);
+33. ``gam_rulefit_coxph_card_vs_cpu``: 98,304 rows on the card and on
+    the CPU: both GAM fits (identified coefficients or smooths within
+    1e-4, predictions within 1e-4), RuleFit built and streamed (10 trees:
+    the same rules, memberships, supports and lambda path, coefficients
+    within 1e-4 x max(1, |beta|)) and CoxPH (coefficients within 1e-5 x
+    max(1, |beta|), log-likelihood within a relative 1e-6, baseline
+    hazard within 1e-5).
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, model files, snapshot and
@@ -336,9 +372,10 @@ numbers (with each kernel's launches per path; the wrapper the covertype
 plan picks carries that path's levels under ``covtype``; the Gram entry
 carries its times at the CV GLM's, at PCA's, at the multinomial
 GLM's class-block design, at the p-values' Fisher pass, at the
-interaction design and at ModelSelection's [X | 1 | y]; the flat entry carries GBM def_5's deep
-levels; each histogram entry the encoded airlines models' root levels
-that took its wrapper), and last
+interaction design, at ModelSelection's [X | 1 | y], at GAM's design, at
+a streamed RuleFit block and at a CoxPH Newton pass; the flat entry
+carries GBM def_5's deep levels; each histogram entry the encoded
+airlines models' root levels that took its wrapper), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -367,31 +404,50 @@ GRAM_TOL = 1e-5                # Gram entry vs plain: <= this x entry |mass|
 GLM_COEF_TOL = 1e-4            # card vs CPU: |dbeta| <= this x max(1, |beta|)
 GLM_DEV_TOL = 1e-5             # card vs CPU: residual deviance, relative
 GLM_PRED_TOL = 1e-4            # card vs CPU: predictions
-OPTIONS_ROWS = 100_000         # gbm_options_card_vs_cpu: HIGGS rows (cut
-                               # from 250,000 for the clock)
+OPTIONS_ROWS = 50_000          # gbm_options_card_vs_cpu: HIGGS rows (cut
+                               # from 250,000 for the clock; 100,000 until
+                               # the GAM/RuleFit/CoxPH slice)
 XGB_CPU_ROWS = 250_000         # xgboost_card_vs_cpu: HIGGS rows (cut
                                # from 1M for the clock)
 IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
 IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
 SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
+CARD_CPU_ROWS = 250_000        # card_vs_cpu: HIGGS rows (cut from 1M for
+                               # the clock; the CPU side took ~46 s)
+QUOTED_ROWS = 1_000_000        # import_csv: the quoted twin's rows (cut
+                               # from the full 7,009,728 for the clock)
 RECOVERY_ROWS = 250_000        # recovery_card_vs_cpu: HIGGS rows (cut
                                # from 1M for the clock)
 RECOVERY_DRF_TREES = 30        # recovery_drf: drf_train's 50 trees cut to 30
 DRF_CPU_ROWS = 30_000          # drf_card_vs_cpu: covertype rows (cut from
-DRF_CPU_ITERATIONS = 3         # 100,000 x 5 iterations for the clock)
+DRF_CPU_ITERATIONS = 2         # 100,000 x 5 iterations for the clock;
+                               # 3 until the GAM/RuleFit/CoxPH slice)
                                # for the script's clock (3 chunks: the kill
                                # before the third still replays one)
 MNIST_ROWS = 60_000            # MNIST's training set
 MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
 MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
 RECOVERY_DL_EPOCHS = 2.0       # recovery_dl: cut from 3 epochs (PR 12)
+RECOVERY_DL_ROWS = 20_000      # recovery_dl: the frame's first rows (cut
+                               # from 60,000 for the clock)
 AUTOML_ROWS = 250_000          # automl_higgs: HIGGS rows (cut from 11M)
 AUTOML_FOLDS = 2               # automl_higgs: CV folds (cut from 5: 78 fits
                                # took 208-226 s on an H100 at 700 W, and
                                # 100,000 rows no less: a deep tree's levels
                                # cost by their 2^level nodes, not rows; 3
                                # folds took 164-228 s, so 2 since PR 12)
+AUTOML_MAX_MODELS = 10         # automl_higgs: cut from 13 for the clock
+                               # (the 2-model GBM grid, ~24 s, and XRT,
+                               # ~14 s, go; GBM def_5, whose deep levels
+                               # the kernel line reports, is the 10th;
+                               # automl_card_vs_cpu still runs a grid)
 AUTOML_CPU_ROWS = 20_000       # automl_card_vs_cpu: HIGGS and covertype rows
+AUTOML_CPU_FOLDS = 2           # automl_card_vs_cpu: CV folds (3 until
+                               # the GAM/RuleFit/CoxPH slice, cut for the
+                               # clock)
+DL_PROFILED_EPOCHS = (0.02, 0.06)  # dl_mnist: the two profiled builds
+                               # (0.05 and 0.15 epochs until the GAM/
+                               # RuleFit/CoxPH slice, cut for the clock)
 GRID_ROWS = 100_000            # grid_recovery: HIGGS rows
 #: what H2O's airlines demos pass to import_file
 IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
@@ -966,10 +1022,11 @@ def _split_bins(model) -> np.ndarray:
 
 
 def phase_card_vs_cpu(dev) -> None:
-    """The HIGGS GBM on 1M rows x 5 trees, on the card and on the CPU."""
+    """The HIGGS GBM on CARD_CPU_ROWS rows x 5 trees, on the card and on
+    the CPU."""
     import torch
 
-    rows, ntrees = 1_000_000, 5
+    rows, ntrees = CARD_CPU_ROWS, 5
     models, preds = {}, {}
     for d in (dev, "cpu"):
         t0 = time.perf_counter()
@@ -980,9 +1037,9 @@ def phase_card_vs_cpu(dev) -> None:
     a, b = models[dev], models["cpu"]
     for k in ("feat", "nanL"):
         _check(torch.equal(a.forest[k].cpu(), b.forest[k]),
-               f"1M rows: {k} differs between card and CPU")
+               f"card_vs_cpu: {k} differs between card and CPU")
     _check(np.array_equal(_split_bins(a), _split_bins(b)),
-           "1M rows: split bins differ between card and CPU")
+           "card_vs_cpu: split bins differ between card and CPU")
     edge_ulps = int(np.nanmax(np.abs(a.edges.view(np.int32).astype(np.int64)
                                      - b.edges.view(np.int32).astype(np.int64))))
     val_err = float((a.forest["val"].cpu() - b.forest["val"]).abs().max())
@@ -993,7 +1050,8 @@ def phase_card_vs_cpu(dev) -> None:
         auc_card=a.output.training_metrics.auc,
         auc_cpu=b.output.training_metrics.auc)), flush=True)
     _check(val_err <= CPU_TOL and pred_err <= CPU_TOL,
-           f"1M rows: leaf values off by {val_err}, predictions by {pred_err}")
+           f"card_vs_cpu: leaf values off by {val_err}, predictions by "
+           f"{pred_err}")
 
 
 def _airlines_plan_inputs(dev, rl: int, widths, B: int, n_lv: int, g):
@@ -1582,8 +1640,9 @@ def phase_drf_train(dev, fr, ntrees: int, xrt: bool, what: str,
 
 
 def phase_drf_card_vs_cpu(dev) -> None:
-    """The covertype DRF on 30,000 rows x 3 iterations (21 trees, depth
-    12), on the card and on the CPU: integer channels, so identical."""
+    """The covertype DRF on DRF_CPU_ROWS rows x DRF_CPU_ITERATIONS
+    iterations (7 trees each, depth 12), on the card and on the CPU:
+    integer channels, so identical."""
     import torch
 
     rows, ntrees = DRF_CPU_ROWS, DRF_CPU_ITERATIONS
@@ -1717,30 +1776,33 @@ def phase_import_csv(dev):
             _check(np.array_equal(got[ok].view(np.int32),
                                   vals[ok].astype(np.float32).view(np.int32)),
                    f"import_csv: {name} is not the generator's float32")
-    # the same rows with the string levels quoted (R's write.csv): the
-    # same frame bit for bit
+    # QUOTED_ROWS rows of the generator with the string levels quoted (R's
+    # write.csv), and the same rows plain: the same frame bit for bit
     try:
-        _write_airlines_csv(path, IMPORT_ROWS, quote=True)
+        _write_airlines_csv(path, QUOTED_ROWS, quote=True)
         qsize = os.path.getsize(path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fq = _import_airlines(path, dev)
         torch.cuda.synchronize()
         qparse_s = time.perf_counter() - t0
+        _write_airlines_csv(path, QUOTED_ROWS)
+        fu = _import_airlines(path, dev)
     finally:
         if os.path.exists(path):
             os.remove(path)
-    _check(fq.names == fr.names and fq.types() == types,
+    _check(fq.names == fu.names and fq.types() == fu.types() == types,
            f"import_csv quoted: names {fq.names}, types {fq.types()}")
-    for name in fr.names:
-        a, b = fr.vec(name), fq.vec(name)
+    for name in fu.names:
+        a, b = fu.vec(name), fq.vec(name)
         _check(a.domain == b.domain and torch.equal(
             a.data.view(torch.int32), b.data.view(torch.int32)),
             f"import_csv quoted: {name} differs from the unquoted parse")
-    del fq
+    del fq, fu
     out = dict(rows=n, bytes=size, write_s=write_s, parse_s=parse_s,
                parse_mb_per_s=size / 1e6 / parse_s,
-               parse_rows_per_s=n / parse_s, quoted_bytes=qsize,
+               parse_rows_per_s=n / parse_s, quoted_rows=QUOTED_ROWS,
+               quoted_bytes=qsize,
                quoted_parse_s=qparse_s,
                quoted_parse_mb_per_s=qsize / 1e6 / qparse_s,
                na=dict(Distance=int(blank["Distance"].sum()),
@@ -2509,9 +2571,10 @@ def phase_dl_mnist(dev, fr) -> dict:
     lab = fr.vec("label").data[:fr.nrow]
     pred = m1.predict(fr).vec(0).data[:fr.nrow]
     err = float((pred != lab).float().mean())
-    n_a, busy_a, wall_a = _profiled_steps(dev, fr, 0.05)
-    n_b, busy_b, wall_b = _profiled_steps(dev, fr, 0.15)
-    dsteps = int(0.15 * steps) - int(0.05 * steps)
+    lo, hi = DL_PROFILED_EPOCHS
+    n_a, busy_a, wall_a = _profiled_steps(dev, fr, lo)
+    n_b, busy_b, wall_b = _profiled_steps(dev, fr, hi)
+    dsteps = int(hi * steps) - int(lo * steps)
     per_step = dict(launches=(n_b - n_a) / dsteps,
                     busy_us=(busy_b - busy_a) / dsteps,
                     wall_us_profiled=(wall_b - wall_a) * 1e6 / dsteps)
@@ -2689,10 +2752,11 @@ def phase_pca_mnist(dev, fr) -> tuple[int, dict]:
 
 
 def phase_recovery_dl(dev, fr) -> dict:
-    """``dl_mnist``'s model at 2 epochs with ``auto_recovery_dir`` (a state
-    write at every epoch), killed at ``train.dl.epoch:raise(preempt)@2``
-    and resumed with ``resume_training``: weights and optimizer slots
-    bit-equal to an uninterrupted 2-epoch run."""
+    """``dl_mnist``'s model on the frame's first RECOVERY_DL_ROWS rows at 2
+    epochs with ``auto_recovery_dir`` (a state write at every epoch),
+    killed at ``train.dl.epoch:raise(preempt)@2`` and resumed with
+    ``resume_training``: weights and optimizer slots bit-equal to an
+    uninterrupted 2-epoch run."""
     import shutil
 
     import torch
@@ -2701,6 +2765,7 @@ def phase_recovery_dl(dev, fr) -> dict:
     from h2o_tpu_torch.backend import persist
     from h2o_tpu_torch.utils import failpoints
 
+    fr = fr.take(np.arange(RECOVERY_DL_ROWS))
     rdir = os.path.join(DATA_DIR, "recovery_dl")
     shutil.rmtree(rdir, ignore_errors=True)
     old = os.environ.get("H2O_TORCH_CHECKPOINT_SECS")
@@ -2885,20 +2950,19 @@ def _leaderboard_rows(aml, steps) -> list:
 
 
 def phase_automl_higgs(dev) -> tuple[dict, dict]:
-    """``H2OAutoML(max_models=13, nfolds=AUTOML_FOLDS, seed=42,
-    exclude_algos=["DeepLearning"])`` on AUTOML_ROWS HIGGS-shaped rows at
-    the full 28 features: every step of the default plan but DeepLearning
-    (3 XGBoost, the lambda-search GLM, DRF, GBM def_1..def_5, XRT, a 2-model
-    GBM grid) and both stacked ensembles. Prints each step's wall and
-    launches, the deepest level width each met, peak memory and the
-    leaderboard; requires finite AUCs above 0.6, sorted, 13 base models and
-    2 ensembles, every base-model step through the flat kernel and the GLM
-    and ensembles through the Gram; the leader predicts, and partial
-    dependence on two columns and permutation importance are timed. After
-    the counted run the flat kernel is held against its plain version on
-    GBM def_5's own codes, node ids and channels at each of its levels of
-    8,192 nodes or more. Returns the launches by kernel and the deep
-    levels' numbers."""
+    """``H2OAutoML(max_models=AUTOML_MAX_MODELS, nfolds=AUTOML_FOLDS,
+    seed=42, exclude_algos=["DeepLearning"])`` on AUTOML_ROWS HIGGS-shaped rows
+    at the full 28 features: the default plan's steps but DeepLearning up to
+    the model budget (3 XGBoost, the lambda-search GLM, DRF, GBM def_1..def_5)
+    and both stacked ensembles. Prints each step's wall and launches, the
+    deepest level width each met, peak memory and the leaderboard; requires
+    finite AUCs above 0.6, sorted, AUTOML_MAX_MODELS base models and 2
+    ensembles, every base-model step through the flat kernel and the GLM and
+    ensembles through the Gram; the leader predicts, and partial dependence on
+    two columns and permutation importance are timed. After the counted run the
+    flat kernel is held against its plain version on GBM def_5's own codes,
+    node ids and channels at each of its levels of 8,192 nodes or more. Returns
+    the launches by kernel and the deep levels' numbers."""
     import torch
 
     from h2o_tpu_torch import (H2OAutoML, partial_dependence,
@@ -2913,7 +2977,8 @@ def phase_automl_higgs(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _FlatLevels(keep=("GBM_def_5",)) as levels:
-        aml = H2OAutoML(max_models=13, nfolds=AUTOML_FOLDS, seed=42,
+        aml = H2OAutoML(max_models=AUTOML_MAX_MODELS, nfolds=AUTOML_FOLDS,
+                        seed=42,
                         exclude_algos=["DeepLearning"],
                         modeling_plan=_timed_plan(automl._default_plan(),
                                                   dev, levels, steps))
@@ -2965,7 +3030,8 @@ def phase_automl_higgs(dev) -> tuple[dict, dict]:
     aucs = [r["auc"] for r in rows]
     base = [r for r in rows if not r["model"].startswith("stackedensemble")]
     _check(not warns, f"automl_higgs: steps failed: {warns}")
-    _check(len(base) == 13 and len(rows) == 15,
+    _check(len(base) == AUTOML_MAX_MODELS
+           and len(rows) == AUTOML_MAX_MODELS + 2,
            f"automl_higgs: {len(base)} base models, {len(rows)} in all")
     _check(all(a is not None and np.isfinite(a) and a > 0.6 for a in aucs),
            f"automl_higgs: leaderboard AUCs {aucs}")
@@ -3010,21 +3076,24 @@ def _multinomial_glm(fr, **kw):
 
 class _GramInputs:
     """While open, the Gram calls of ``module`` (the GLM's by default,
-    or ModelSelection's) keep the inputs of the last one: a class block's
-    design, IRLS weights and working response, or [X | 1 | y] and its
-    row weights."""
+    or ModelSelection's, RuleFit's, CoxPH's) keep the inputs of the last
+    one (with ``first``, of the first one): a class block's design, IRLS
+    weights and working response, [X | 1 | y] and its row weights, a
+    streamed design block, or a Newton pass's design and risk weights."""
 
-    def __init__(self, module=None):
+    def __init__(self, module=None, first: bool = False):
         from h2o_tpu_torch.models import glm
 
         self.module = module or glm
+        self.first = first
 
     def __enter__(self):
         self.orig, self.last = self.module.gram_accumulate, None
         orig = self.orig
 
         def kept(X, W, z=None):
-            self.last = (X, W, z)
+            if not (self.first and self.last is not None):
+                self.last = (X, W, z)
             return orig(X, W, z)
         self.module.gram_accumulate = kept
         return self
@@ -3154,16 +3223,14 @@ def phase_ensemble_covtype(dev, fr) -> dict:
 
 def phase_automl_card_vs_cpu(dev) -> dict:
     """AUTOML_CPU_ROWS HIGGS rows through ``automl.small_plan`` (10 trees
-    at depth 4, XGBoost included, a DeepLearning of three 10-unit layers)
-    with 3 folds on
-    the card and on the CPU: the same steps, the same grid combos, every
-    model's leaderboard metrics (auc, logloss, rmse) within 1e-4; every
-    ensemble's metalearner coefficients within 1e-4 x max(1, |beta|) and
-    its predictions within 1e-4 (with the largest difference of its
-    level-one columns printed); the leaders' predictions within 1e-4; and
-    the multinomial GLM on AUTOML_CPU_ROWS covertype rows: coefficients
-    within 1e-4 x max(1, |beta|), logloss within 1e-5. Returns the card's
-    launches."""
+    at depth 4, XGBoost included, a DeepLearning of three 10-unit layers) with
+    AUTOML_CPU_FOLDS folds on the card and on the CPU: the same steps, the same
+    grid combos, every model's leaderboard metrics (auc, logloss, rmse) within
+    1e-4; every ensemble's metalearner coefficients within 1e-4 x max(1,
+    |beta|) and its predictions within 1e-4 (with the largest difference of its
+    level-one columns printed); the leaders' predictions within 1e-4; and the
+    multinomial GLM on AUTOML_CPU_ROWS covertype rows: coefficients within 1e-4
+    x max(1, |beta|), logloss within 1e-5. Returns the card's launches."""
     import torch
 
     from h2o_tpu_torch import H2OAutoML
@@ -3175,7 +3242,7 @@ def phase_automl_card_vs_cpu(dev) -> dict:
         if d is dev:
             _reset_counts()
         t0 = time.perf_counter()
-        aml = H2OAutoML(max_models=7, nfolds=3, seed=42,
+        aml = H2OAutoML(max_models=7, nfolds=AUTOML_CPU_FOLDS, seed=42,
                         modeling_plan=automl.small_plan(
                             ntrees=10, max_depth=4, hidden=(10, 10, 10),
                             xgboost=True))
@@ -4317,6 +4384,561 @@ def phase_glm_rest_card_vs_cpu(dev, air) -> int:
     return launches
 
 
+GAM_COLUMNS = ["f1", "f2", "f4"]   # bench.py:588's gam columns
+#: gam_higgs' second fit: thin plate, monotone I-splines and P-splines, one
+#: column each; the I-splines on f0, the response's strongest column (f1,
+#: f2 and f4 are noise in the generator, so a monotone smooth there is
+#: flat). Each smooth at penalty scale 1,000: at 1 the thin plate's Gram
+#: is near-singular, and on 100,000 rows a 1e-6 relative change of the
+#: Gram's sums moved the predictions by up to 1.5e-3 (a CPU experiment;
+#: ROADMAP Queue 3 item 26), so no card could be held to the CPU there
+GAM_BS = dict(gam_columns=["f1", "f0", "f4"], bs=[1, 2, 3],
+              scale=[1000.0] * 3)
+SLICE_CPU_ROWS = 98_304            # gam_rulefit_coxph_card_vs_cpu: rows (3 x
+                                   # 2^15: the CPU's streamed RuleFit keeps
+                                   # the reference's power-of-two blocks,
+                                   # 32,768 rows here, 256 at 100,000)
+RULEFIT_CPU_TREES = 10             # gam_rulefit_coxph_card_vs_cpu: RuleFit's
+                                   # trees (50 in rulefit_higgs; the CPU's
+                                   # plain histogram takes ~0.1 s a level)
+COXPH_ROWS = 1_000_000             # coxph_survival: the survival frame
+COXPH_BETA = (0.5, -0.4, 0.3, -0.2, 0.1, 0.0, 0.25, -0.15, 0.05, -0.3)
+COXPH_CAT_BETA = (0.2, -0.1, 0.3, -0.25)   # levels c1..c4 against c0
+COXPH_RATES = (2.7e-4, 4e-4, 2e-4, 3.3e-4)  # baseline hazard a day, stratum
+COXPH_TOL = 1e-5                   # card vs CPU: coefficients, baseline
+
+
+def _survival_cols(nrow: int, seed: int = 2000):
+    """A survival frame with known coefficients: 10 standard normal
+    covariates, a 5-level categorical ``c`` and a 4-level stratum, event
+    times exponential at each stratum's baseline rate times exp(lp),
+    censored uniformly over 3,000 days and at the 2,000-day end of
+    follow-up, rounded up to whole days (so Efron's tie groups are large;
+    about 35% events)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(nrow, 10)).astype(np.float32)
+    cat = rng.integers(0, 5, nrow)
+    strat = rng.integers(0, 4, nrow)
+    lp = (X.astype(np.float64) @ np.asarray(COXPH_BETA)
+          + np.concatenate([[0.0], COXPH_CAT_BETA])[cat])
+    t = rng.exponential(1.0 / (np.asarray(COXPH_RATES)[strat] * np.exp(lp)))
+    end = np.minimum(rng.uniform(0.0, 3000.0, nrow), 2000.0)
+    cols = {f"x{j}": X[:, j] for j in range(10)}
+    cols["time"] = np.clip(np.ceil(np.minimum(t, end)), 1, 2000).astype(
+        np.float32)
+    cols["event"] = (t <= end).astype(np.float32)
+    return cols, cat, strat
+
+
+def _survival_frame(nrow: int, device):
+    from h2o_tpu_torch import Frame, Vec
+    from h2o_tpu_torch.frame.vec import T_CAT
+
+    cols, cat, strat = _survival_cols(nrow)
+    fr = Frame.from_dict(cols, device=device)
+    fr.add("c", Vec.from_numpy(cat, type=T_CAT, device=device,
+                               domain=[f"c{i}" for i in range(5)]))
+    fr.add("stratum", Vec.from_numpy(strat, type=T_CAT, device=device,
+                                     domain=[f"s{i}" for i in range(4)]))
+    return fr
+
+
+def _coxph(fr):
+    from h2o_tpu_torch import CoxPH, CoxPHParameters
+
+    return CoxPH(CoxPHParameters(
+        training_frame=fr, response_column="event", stop_column="time",
+        stratify_by=["stratum"], ties="efron")).train_model()
+
+
+def _gam(fr, **kw):
+    """``bench.py:bench_gam``'s fit: binomial, IRLSM, seed 42, cr bases at
+    8 knots on f1, f2 and f4, every other parameter at its default."""
+    from h2o_tpu_torch import GAM, GAMParameters
+
+    kw = dict(dict(gam_columns=GAM_COLUMNS), **kw)
+    return GAM(GAMParameters(training_frame=fr, response_column="response",
+                             family="binomial", solver="IRLSM", seed=42,
+                             **kw)).train_model()
+
+
+def _rulefit(fr, ntrees: int = 50):
+    """``bench.py:bench_rulefit``'s fit: rules and linear terms, rule
+    length 3 to 3 (one DRF of ``ntrees`` depth-3 trees), seed 42."""
+    from h2o_tpu_torch import RuleFit, RuleFitParameters
+
+    return RuleFit(RuleFitParameters(
+        training_frame=fr, response_column="response",
+        model_type="rules_and_linear", min_rule_length=3, max_rule_length=3,
+        rule_generation_ntrees=ntrees, seed=42)).train_model()
+
+
+def _gam_identified(model) -> np.ndarray:
+    """GAM coefficients with each cr / B-spline block's mean removed: those
+    bases sum to one in every row, so with the intercept the design is
+    rank-deficient along each block's all-ones direction, whose share is
+    rounding noise over the solve's 1e-8 ridge (ROADMAP Queue 3 item 26)."""
+    b = np.asarray(model.beta, np.float64).copy()
+    off = len(model.dinfo.expanded_names)
+    for spec in model.gam_specs:
+        k = len(spec["col_means"])
+        if int(spec["bs"]) in (0, 3):
+            b[off:off + k] -= b[off:off + k].mean()
+        off += k
+    return b
+
+
+def _gam_smooths(model, fr) -> list:
+    """Each gam column's fitted smooth (its centred basis times its
+    coefficient block) over the frame's rows, what a block's coefficients
+    determine whatever its conditioning, with its absolute mass (the sum
+    of |basis x coefficient|: a thin plate's terms cancel)."""
+    X = model.adapt_frame(fr)[:fr.nrow].double().cpu().numpy()
+    beta = np.asarray(model.beta, np.float64)
+    out, off = [], len(model.dinfo.expanded_names)
+    for spec in model.gam_specs:
+        k = len(spec["col_means"])
+        B, b = X[:, off:off + k], beta[off:off + k]
+        out.append((B @ b, np.abs(B) @ np.abs(b)))
+        off += k
+    return out
+
+
+def _gam_host_eta(model, fr, n: int) -> np.ndarray:
+    """The linear predictor of the first ``n`` rows from the standalone
+    scorer's numpy bases (``mojo/format.py``), in float64 on the host."""
+    from h2o_tpu_torch.mojo.format import gam_basis
+
+    beta = np.asarray(model.beta, np.float64)
+    X, _ = model.dinfo.expand(fr)
+    P = X.shape[1]
+    eta = X[:n].double().cpu().numpy() @ beta[:P] + beta[-1]
+    off = P
+    for spec in model.gam_specs:
+        B = gam_basis(fr.vec(spec["column"]).to_numpy()[:n], spec)
+        B = B - np.asarray(spec["col_means"])[None, :]
+        eta = eta + B @ beta[off:off + B.shape[1]]
+        off += B.shape[1]
+    return eta
+
+
+def phase_gam_higgs(dev, fr) -> tuple[int, dict]:
+    """``bench.py:bench_gam`` on the 11M HIGGS frame (cr bases at 8 knots on
+    f1, f2, f4), then thin plate on f1, monotone I-splines on f0 and
+    P-splines on f4 (``GAM_BS``): Gram launches = IRLS iterations and no
+    other kernel, residual below null deviance, training AUC finite and
+    above 0.6; the first SLICE_CPU_ROWS rows' predictions, through the
+    bases replayed on the card, within 1e-4 of the standalone scorer's
+    numpy bases; the
+    I-spline smooth non-decreasing over a grid of f0 (its coefficients
+    non-negative, the predictions along the grid not falling); P, walls
+    and peak memory. Then the Gram kernel against its plain version on
+    the first fit's own design. Returns the launches and that check."""
+    import torch
+
+    from h2o_tpu_torch import Frame
+
+    out, launches, shape = {}, 0, None
+    n = SLICE_CPU_ROWS
+    for name, kw in (("cr", {}), ("bs123", GAM_BS)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _GramInputs() as kept:
+            model = _gam(fr, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = _counts()
+        launches += counts["gram"]
+        iters = model.output.scoring_history[0]["iterations"]
+        m = model.output.training_metrics
+        t0 = time.perf_counter()
+        p1 = model.predict(fr).vec("ps").data[:n].double().cpu().numpy()
+        predict_s = time.perf_counter() - t0
+        host = 1.0 / (1.0 + np.exp(-_gam_host_eta(model, fr, n)))
+        row = dict(rows=fr.nrow, P=len(model.beta), train_s=train_s,
+                   predict_s=predict_s, iterations=iters, launches=counts,
+                   auc=m.auc, residual_deviance=m.residual_deviance,
+                   null_deviance=m.null_deviance,
+                   replay_vs_numpy_max_abs_err=float(np.abs(p1 - host).max()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        _check(counts["gram"] == iters and counts["flat"] == 0
+               and counts["grouped"] == 0,
+               f"gam_higgs {name}: launches {counts} for {iters} iterations")
+        _check(m.residual_deviance < m.null_deviance,
+               f"gam_higgs {name}: residual {m.residual_deviance} >= null "
+               f"{m.null_deviance}")
+        _check(bool(np.isfinite(m.auc)) and m.auc > 0.6,
+               f"gam_higgs {name}: AUC {m.auc}")
+        _check(row["replay_vs_numpy_max_abs_err"] <= 1e-4,
+               f"gam_higgs {name}: replayed bases off by "
+               f"{row['replay_vs_numpy_max_abs_err']}")
+        if name == "cr":
+            X, W, z = kept.last
+            shape = _gram_check(X, W, z, reps=5)
+            row["gram_at_path"] = shape
+            del X, W, z
+        else:
+            # the I-spline block (f0): non-negative coefficients, and a
+            # smooth that does not fall along a grid of f0
+            off = len(model.dinfo.expanded_names)
+            for spec in model.gam_specs:
+                k = len(spec["col_means"])
+                if spec["bs"] == 2:
+                    mono = model.beta[off:off + k]
+                off += k
+            r = fr.vec("f0").rollups()
+            g = np.linspace(r.mins, r.maxs, 400).astype(np.float32)
+            cols = {c: np.zeros(400, np.float32) for c in fr.names
+                    if c != "response"}
+            cols["f0"] = g
+            gp = model.predict(Frame.from_dict(cols, device=dev))
+            gp = gp.vec("ps").data[:400].double().cpu().numpy()
+            row["ispline_min_coef"] = float(mono.min())
+            row["grid_min_step"] = float(np.diff(gp).min())
+            _check(row["ispline_min_coef"] >= 0.0 and
+                   row["grid_min_step"] >= -1e-6,
+                   f"gam_higgs: the I-spline smooth falls: {row}")
+        del kept
+        out[name] = {k: v for k, v in row.items() if k != "gram_at_path"}
+        del model
+        torch.cuda.empty_cache()
+    print("gam_higgs", json.dumps(dict(fits=out, gram_at_path=shape)),
+          flush=True)
+    return launches, shape
+
+
+def _recount_rules(forests, depth: int) -> int:
+    """Distinct root-to-node paths of exactly ``depth`` splits over the
+    sub-forests' (T[, K], N) arrays: a node counts when every ancestor
+    split (an independent walk of the heap, not ``extract_rules``)."""
+    seen = set()
+    for fo in forests:
+        feat, thr, nanL = (fo[k].cpu().numpy() for k in ("feat", "thr",
+                                                          "nanL"))
+        feat, thr, nanL = (a.reshape(-1, a.shape[-1])
+                           for a in (feat, thr, nanL))
+        for t in range(feat.shape[0]):
+            for node in range(2 ** depth - 1, 2 ** (depth + 1) - 1):
+                path, n = [], node
+                while n > 0:
+                    p = (n - 1) // 2
+                    if feat[t, p] < 0:
+                        break
+                    path.append((int(feat[t, p]), "<=" if n == 2 * p + 1
+                                 else ">", float(thr[t, p]),
+                                 bool(nanL[t, p])))
+                    n = p
+                else:
+                    seen.add(tuple(reversed(path)))
+    return len(seen)
+
+
+class _RuleForests:
+    """While open, keeps the sub-forests RuleFit extracts its rules from."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import rulefit
+
+        self.forests, self.orig = [], rulefit.extract_rules
+
+        def kept(forest, *a):
+            self.forests.append(forest)
+            return self.orig(forest, *a)
+        rulefit.extract_rules = kept
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import rulefit
+
+        rulefit.extract_rules = self.orig
+
+
+def phase_rulefit_higgs(dev, fr) -> tuple[dict, dict]:
+    """``bench.py:bench_rulefit`` on the 11M HIGGS frame: 50 depth-3 DRF
+    trees, rules of length 3 and the 28 linear terms, the L1 path over
+    the streamed design (11M x ~430 is past the 2^29-cell budget): the
+    streamed path taken, flat launches = trees x 3 levels, Gram launches =
+    IRLS steps x blocks per step and no grouped launch, as many rules as
+    the forest has distinct depth-3 paths (recounted independently),
+    every support in [0, 1], training AUC finite and above 0.6; walls,
+    lambdas walked, steps, block rows and peak memory. Then the Gram kernel
+    against its plain version on the first streamed block's own design,
+    IRLS weights and working response. Returns the launches by kernel and
+    that check."""
+    import torch
+
+    from h2o_tpu_torch.models import rulefit
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _GramInputs(rulefit, first=True) as kept, _RuleForests() as rf:
+        model = _rulefit(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    plen = fr.vec(0).plen
+    blocks = -(-plen // model.stream_block_rows)
+    trees = sum(int(np.prod(f["feat"].shape[:-1])) for f in rf.forests)
+    sup = np.array([r.support for r in model.rules])
+    m = model.output.training_metrics
+    want_rules = _recount_rules(rf.forests, 3)
+    X, W, z = kept.last
+    shape = _gram_check(X, W, z, reps=5)
+    del kept, X, W, z
+    out = dict(rows=fr.nrow, train_s=train_s, stream=model.stream,
+               rules=len(model.rules), recounted_rules=want_rules,
+               linear_terms=len(model.lin_names), P=len(model.beta),
+               trees=trees, block_rows=model.stream_block_rows,
+               blocks_per_step=blocks, steps=model.stream_steps,
+               lambdas_walked=model.lambdas_walked,
+               lambda_used=model.lambda_used, launches=counts,
+               nonzero=int(np.sum(np.abs(model.beta) > 0)), auc=m.auc,
+               support_range=[float(sup.min()), float(sup.max())],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               gram_at_path=shape)
+    print("rulefit_higgs", json.dumps(out), flush=True)
+    _check(model.stream, "rulefit_higgs: the streamed path was not taken")
+    _check(counts["flat"] == trees * 3 and counts["grouped"] == 0,
+           f"rulefit_higgs: {counts} for {trees} depth-3 trees")
+    _check(counts["gram"] == model.stream_steps * blocks,
+           f"rulefit_higgs: {counts['gram']} Gram launches for "
+           f"{model.stream_steps} steps of {blocks} blocks")
+    _check(len(model.rules) == want_rules and all(
+        len(r.conds) == 3 for r in model.rules),
+        f"rulefit_higgs: {len(model.rules)} rules, {want_rules} paths")
+    _check(bool(np.all((sup >= 0) & (sup <= 1))),
+           f"rulefit_higgs: supports {out['support_range']}")
+    _check(bool(np.isfinite(m.auc)) and m.auc > 0.6,
+           f"rulefit_higgs: AUC {m.auc}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, shape
+
+
+class _CoxPasses:
+    """While open, records each Newton pass's log-likelihood."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import coxph
+
+        self.ll, self.orig = [], coxph._cox_pass
+
+        def kept(*a):
+            out = self.orig(*a)
+            self.ll.append(float(out[0]))
+            return out
+        coxph._cox_pass = kept
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import coxph
+
+        coxph._cox_pass = self.orig
+
+
+def phase_coxph_survival(dev) -> tuple[int, dict]:
+    """CoxPH (Efron ties, 4 strata) on the 1,000,000-row survival frame
+    (``_survival_cols``), twice: the two fits bit-equal (coefficients and
+    log-likelihood), Gram launches = 2 x Newton passes and no other
+    kernel, the log-likelihood rising pass by pass, every coefficient
+    within 0.05 of its true value, concordance above 0.5, each stratum's
+    cumulative baseline hazard non-decreasing, and ``survfit`` curves in
+    [0, 1] that do not rise; walls, passes, events and peak memory. Then
+    the Gram kernel against its plain version on a Newton pass's own
+    design and risk weights (z = None). Returns the first fit's launches
+    and that check."""
+    import torch
+
+    from h2o_tpu_torch.models import coxph
+
+    fr = _survival_frame(COXPH_ROWS, dev)
+    fits, walls, lls, launches = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _GramInputs(coxph, first=True) as kept, _CoxPasses() as passes:
+            fits.append(_coxph(fr))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(_counts())
+        lls.append(passes.ll)
+    a, b = fits
+    X, W, _ = kept.last
+    shape = _gram_check(X, W, None, reps=5)
+    del kept, X, W
+    tm = a.output.training_metrics
+    names = list(a.coefficients)
+    truth = dict(zip([f"c.c{i}" for i in range(1, 5)], COXPH_CAT_BETA))
+    truth.update({f"x{j}": v for j, v in enumerate(COXPH_BETA)})
+    err = {k: abs(a.coefficients[k] - truth[k]) for k in names}
+    bh_ok = all(bool(np.all(np.diff(h) >= 0)) for _, h in a.baseline.values())
+    sub = fr.take(np.arange(5))
+    sf = a.survfit(sub)
+    curves = np.stack([sf.vec(c).to_numpy() for c in sf.names[1:]])
+    ll = lls[0]
+    out = dict(rows=fr.nrow, events=tm.n_events, fit_s=walls,
+               passes=a.newton_passes, launches=launches[0], loglik=ll,
+               coefficients={k: float(v) for k, v in a.coefficients.items()},
+               max_coef_err=max(err.values()), concordance=tm.concordance,
+               strata=len(a.baseline), survfit_times=int(curves.shape[1]),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               gram_at_path=shape)
+    print("coxph_survival", json.dumps(out), flush=True)
+    _check(all(a.coefficients[k] == b.coefficients[k] for k in names)
+           and tm.loglik == b.output.training_metrics.loglik
+           and lls[0] == lls[1],
+           "coxph_survival: two fits at one seed differ")
+    _check(launches[0]["gram"] == 2 * a.newton_passes
+           and launches[0]["flat"] == launches[0]["grouped"] == 0,
+           f"coxph_survival: {launches[0]} for {a.newton_passes} passes")
+    _check(all(y >= x - 1e-9 * abs(x) for x, y in zip(ll, ll[1:]))
+           and ll[-1] > ll[0], f"coxph_survival: log-likelihoods {ll}")
+    _check(out["max_coef_err"] <= 0.05, f"coxph_survival: {err}")
+    _check(tm.concordance > 0.5, f"coxph_survival: concordance "
+                                 f"{tm.concordance}")
+    _check(bh_ok and len(a.baseline) == 4,
+           "coxph_survival: a cumulative baseline hazard falls")
+    _check(bool(np.all((curves >= 0) & (curves <= 1))
+                and np.all(np.diff(curves, axis=1) <= 0)),
+           "coxph_survival: survfit curves")
+    return launches[0]["gram"], shape
+
+
+def phase_gam_rulefit_coxph_card_vs_cpu(dev) -> dict:
+    """SLICE_CPU_ROWS rows on the card and on the CPU. GAM, both of
+    ``gam_higgs``' fits: iterations within one, predictions within 1e-4; the cr
+    fit's coefficients within 1e-4 x max(1, |beta|), each cr block with its
+    mean removed (``_gam_identified``); the second fit's linear coefficients
+    and intercept likewise, and each smooth's values within 1e-4 x max(1, its
+    absolute mass) at every row (``_gam_smooths``: its thin plate's Gram is
+    near-singular and its I-splines' COD runs in float32, so their coefficients
+    are held through what they fit). RuleFit at ``rulefit_higgs``' settings
+    with RULEFIT_CPU_TREES trees, on the built design and streamed (the cell
+    budget lowered to 1 inside the phase): the same rules, rule arrays,
+    memberships and supports, exactly; the same lambdas (the built path's last
+    within a relative 1e-4, the streamed path's count and steps equal);
+    coefficients within 1e-4 x max(1, |beta|). CoxPH on the survival frame:
+    coefficients within 1e-5 x max(1, |beta|), the log-likelihood within a
+    relative 1e-6, the baseline hazard within a relative 1e-5 at the same
+    times. Returns the card's launches."""
+    import torch
+
+    from h2o_tpu_torch.models import rulefit
+
+    rows = SLICE_CPU_ROWS
+    higgs = {d: _higgs_frame(rows, d) for d in (dev, "cpu")}
+    out, launches = {}, dict(gram=0, flat=0, grouped=0)
+
+    def pair(name, make, frames):
+        fits, secs = {}, {}
+        for d, fr in frames.items():
+            _reset_counts()
+            t0 = time.perf_counter()
+            fits[d] = make(fr)
+            secs[d] = time.perf_counter() - t0
+            if d != "cpu":
+                for k, v in _counts().items():
+                    launches[k] += v
+        out[name] = dict(card_s=secs[dev], cpu_s=secs["cpu"])
+        return fits[dev], fits["cpu"], out[name]
+
+    for name, kw in (("gam_cr", {}), ("gam_bs123", GAM_BS)):
+        a, b, row = pair(name, lambda fr: _gam(fr, **kw), higgs)
+        row["iterations"] = [m.output.scoring_history[0]["iterations"]
+                             for m in (a, b)]
+        row["coef_max_rel_err"] = _rel(_gam_identified(a),
+                                       _gam_identified(b))
+        pa = a.predict(higgs[dev]).vec("ps").data[:rows].cpu().numpy()
+        pb = b.predict(higgs["cpu"]).vec("ps").data[:rows].numpy()
+        row["pred_max_abs_err"] = float(np.abs(pa - pb).max())
+        # the stopping test compares a float32-rounded step with
+        # beta_epsilon: a count may end one iteration apart
+        _check(abs(row["iterations"][0] - row["iterations"][1]) <= 1,
+               f"card_vs_cpu {name}: iterations {row['iterations']}")
+        _check(row["pred_max_abs_err"] <= GLM_PRED_TOL,
+               f"card_vs_cpu {name}: predictions {row}")
+        if name == "gam_cr":
+            _check(row["coef_max_rel_err"] <= GLM_COEF_TOL,
+                   f"card_vs_cpu {name}: coefficients {row}")
+        else:
+            # the thin plate's Gram is near-singular and the I-splines' COD
+            # runs in float32: the linear terms and the intercept by their
+            # coefficients, each smooth by its values
+            lin = np.r_[0:len(a.dinfo.expanded_names), len(a.beta) - 1]
+            row["coef_max_rel_err"] = _rel(np.asarray(a.beta)[lin],
+                                           np.asarray(b.beta)[lin])
+            row["smooth_max_rel_mass"] = max(
+                float((np.abs(x - y) / np.maximum(1.0, mass)).max())
+                for (x, _), (y, mass) in zip(_gam_smooths(a, higgs[dev]),
+                                             _gam_smooths(b, higgs["cpu"])))
+            _check(row["coef_max_rel_err"] <= GLM_COEF_TOL
+                   and row["smooth_max_rel_mass"] <= GLM_COEF_TOL,
+                   f"card_vs_cpu {name}: coefficients {row}")
+    old = rulefit._STREAM_CELL_BUDGET
+    for name, budget in (("rulefit_built", old), ("rulefit_streamed", 1)):
+        rulefit._STREAM_CELL_BUDGET = budget
+        try:
+            a, b, row = pair(name, lambda fr: _rulefit(
+                fr, RULEFIT_CPU_TREES), higgs)
+        finally:
+            rulefit._STREAM_CELL_BUDGET = old
+        _check(a.stream == b.stream == (budget == 1),
+               f"card_vs_cpu {name}: streamed {a.stream}, {b.stream}")
+        _check([r.conds for r in a.rules] == [r.conds for r in b.rules]
+               and all(torch.equal(x, y) for x, y in zip(a.rule_arrays,
+                                                         b.rule_arrays)),
+               f"card_vs_cpu {name}: rules differ")
+        ma = rulefit.eval_rules(higgs[dev].as_matrix(a.output.names),
+                                *a.rule_arrays).cpu()
+        mb = rulefit.eval_rules(higgs["cpu"].as_matrix(b.output.names),
+                                *b.rule_arrays)
+        sa = [r.support for r in a.rules]
+        sb = [r.support for r in b.rules]
+        _check(torch.equal(ma, mb) and sa == sb,
+               f"card_vs_cpu {name}: memberships or supports differ")
+        row.update(rules=len(a.rules),
+                   lambda_used=[a.lambda_used, b.lambda_used],
+                   coef_max_rel_err=_rel(a.beta, b.beta))
+        if a.stream:
+            row.update(lambdas_walked=[a.lambdas_walked, b.lambdas_walked],
+                       steps=[a.stream_steps, b.stream_steps])
+            _check(a.lambdas_walked == b.lambdas_walked
+                   and a.stream_steps == b.stream_steps,
+                   f"card_vs_cpu {name}: lambda paths {row}")
+        _check(abs(a.lambda_used - b.lambda_used) <= 1e-4 * b.lambda_used
+               and row["coef_max_rel_err"] <= GLM_COEF_TOL,
+               f"card_vs_cpu {name}: {row}")
+    surv = {d: _survival_frame(rows, d) for d in (dev, "cpu")}
+    a, b, row = pair("coxph", _coxph, surv)
+    names = list(b.coefficients)
+    ca = np.array([a.coefficients[k] for k in names])
+    cb = np.array([b.coefficients[k] for k in names])
+    la, lb = a.output.training_metrics.loglik, b.output.training_metrics.loglik
+    row.update(passes=[a.newton_passes, b.newton_passes],
+               coef_max_rel_err=_rel(ca, cb),
+               loglik_rel_err=abs(la - lb) / abs(lb))
+    _check(sorted(a.baseline) == sorted(b.baseline) and all(
+        np.array_equal(a.baseline[k][0], b.baseline[k][0])
+        for k in b.baseline), "card_vs_cpu coxph: baseline times differ")
+    row["baseline_max_rel_err"] = max(
+        float(np.max(np.abs(a.baseline[k][1] - b.baseline[k][1])
+                     / np.maximum(np.abs(b.baseline[k][1]), 1e-300)))
+        for k in b.baseline)
+    _check(row["coef_max_rel_err"] <= COXPH_TOL
+           and row["loglik_rel_err"] <= 1e-6
+           and row["baseline_max_rel_err"] <= COXPH_TOL,
+           f"card_vs_cpu coxph: {row}")
+    print("gam_rulefit_coxph_card_vs_cpu", json.dumps(dict(
+        rows=rows, fits=out, card_launches=launches)), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4389,7 +5011,14 @@ def main() -> int:
     ams_launches, gram_at_sweep = run(
         "anova_modelselection_higgs",
         lambda d: phase_anova_modelselection_higgs(d, higgs))
+    gam_launches, gram_at_gam = run("gam_higgs",
+                                    lambda d: phase_gam_higgs(d, higgs))
+    rf_launches, gram_at_rulefit = run(
+        "rulefit_higgs", lambda d: phase_rulefit_higgs(d, higgs))
     del higgs
+    cox_launches, gram_at_cox = run("coxph_survival", phase_coxph_survival)
+    grc_launches = run("gam_rulefit_coxph_card_vs_cpu",
+                       phase_gam_rulefit_coxph_card_vs_cpu)
     run("glm_card_vs_cpu", phase_glm_card_vs_cpu)
     run("gbm_options_card_vs_cpu", phase_gbm_options_card_vs_cpu)
     gblinear_launches = run("xgboost_card_vs_cpu", phase_xgboost_card_vs_cpu)
@@ -4478,7 +5107,10 @@ def main() -> int:
                                 automl_higgs=automl_launches["flat"],
                                 ensemble_covtype=ens_launches["flat"],
                                 automl_card_vs_cpu=cvc_launches["flat"],
-                                grid_recovery=grid_launches),
+                                grid_recovery=grid_launches,
+                                rulefit_higgs=rf_launches["flat"],
+                                gam_rulefit_coxph_card_vs_cpu=grc_launches[
+                                    "flat"]),
              "level_hist_grouped": dict(airlines_train=grouped_launches,
                                         import_cv_gbm=cv_gbm_launches,
                                         compress_airlines=cmp_launches),
@@ -4494,7 +5126,12 @@ def main() -> int:
                           glm_constrained_higgs=con_launches,
                           anova_modelselection_higgs=ams_launches,
                           glm_interactions_airlines=inter_launches,
-                          glm_rest_card_vs_cpu=rest_launches)}
+                          glm_rest_card_vs_cpu=rest_launches,
+                          gam_higgs=gam_launches,
+                          rulefit_higgs=rf_launches["gram"],
+                          coxph_survival=cox_launches,
+                          gam_rulefit_coxph_card_vs_cpu=grc_launches[
+                              "gram"])}
     for path, counts in (("encoding_airlines", enc["launches"]),
                          ("model_surface_card_vs_cpu", surface_launches)):
         paths["level_hist"][path] = counts["flat"]
@@ -4553,13 +5190,21 @@ def main() -> int:
             e["pvalues_shape"] = _gram_shape(gram_at_pvalues)
             e["interactions_shape"] = _gram_shape(gram_at_inter)
             e["modelselection_shape"] = _gram_shape(gram_at_sweep)
+            # the Gram's other users: GAM's 11M design, RuleFit's first
+            # streamed block and a CoxPH Newton pass (z = None)
+            e["gam_shape"] = _gram_shape(gram_at_gam)
+            e["rulefit_block_shape"] = _gram_shape(gram_at_rulefit)
+            e["coxph_shape"] = _gram_shape(gram_at_cox)
             e["max_abs_err"] = max(e["max_abs_err"],
                                    gram_at_path["max_abs_err"],
                                    gram_at_pca["max_abs_err"],
                                    gram_at_block["max_abs_err"],
                                    gram_at_pvalues["max_abs_err"],
                                    gram_at_inter["max_abs_err"],
-                                   gram_at_sweep["max_abs_err"])
+                                   gram_at_sweep["max_abs_err"],
+                                   gram_at_gam["max_abs_err"],
+                                   gram_at_rulefit["max_abs_err"],
+                                   gram_at_cox["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

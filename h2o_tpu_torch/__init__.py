@@ -41,7 +41,14 @@ and ``partial_dependence``/``permutation_varimp``. The model surface:
 TreeSHAP contributions, leaf assignments and staged predictions for every
 tree model (``models/tree/shap.py``, ``engine.forest_covers``), the
 categorical encodings frozen at training and replayed at scoring
-(``utils/linalg.py``), custom metrics and the ``Model`` tables.
+(``utils/linalg.py``), custom metrics and the ``Model`` tables. The
+Gram's other users: ``GAM`` (cr, thin-plate, monotone I-spline and
+P-spline bases, ``mojo/format.py``'s numpy bases and their device twins,
+one Gram launch per penalized IRLS iteration), ``RuleFit`` (rules from DRF
+or GBM sub-forests, the L1 path over a built design or, past 2^29 cells,
+a design streamed block by block through the Gram kernel) and ``CoxPH``
+(Efron or Breslow ties, strata, two Gram launches per Newton pass, the
+Breslow baseline hazard and ``survfit``).
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -66,6 +73,7 @@ from .frame.vec import Vec
 from .io.parser import ParseSetup, import_file
 from .models.anovaglm import ANOVAGLM, ANOVAGLMModel, ANOVAGLMParameters
 from .models.automl import H2OAutoML, Leaderboard
+from .models.coxph import CoxPH, CoxPHModel, CoxPHParameters
 from .models.deeplearning import (DeepLearning, DeepLearningModel,
                                   DeepLearningParameters)
 from .models.drf import (DRF, XRT, DRFModel, DRFParameters,
@@ -74,6 +82,7 @@ from .models.gbm import GBM, GBMModel, GBMParameters
 from .models.ensemble import (StackedEnsemble, StackedEnsembleModel,
                               StackedEnsembleParameters)
 from .models.explain import partial_dependence, permutation_varimp
+from .models.gam import GAM, GAMModel, GAMParameters
 from .models.glm import GLM, GLMModel, GLMMultinomialModel, GLMParameters
 from .models.grid import (Grid, GridSearch, SearchCriteria, export_grid,
                           import_grid)
@@ -83,6 +92,7 @@ from .models.modelselection import (ModelSelection, ModelSelectionModel,
 from .models.model_base import resume_training
 from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
     SVDParameters
+from .models.rulefit import RuleFit, RuleFitModel, RuleFitParameters
 from .models.xgboost import XGBoost, XGBoostParameters
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
@@ -100,4 +110,6 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "Leaderboard", "partial_dependence", "permutation_varimp",
            "ANOVAGLM", "ANOVAGLMModel", "ANOVAGLMParameters",
            "ModelSelection", "ModelSelectionModel",
-           "ModelSelectionParameters"]
+           "ModelSelectionParameters", "GAM", "GAMModel", "GAMParameters",
+           "RuleFit", "RuleFitModel", "RuleFitParameters", "CoxPH",
+           "CoxPHModel", "CoxPHParameters"]

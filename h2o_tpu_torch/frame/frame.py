@@ -105,6 +105,16 @@ class Frame(Keyed):
     def types(self) -> dict[str, str]:
         return dict(zip(self._names, (v.type for v in self._vecs)))
 
+    def as_matrix(self, names: Sequence[str] | None = None) -> torch.Tensor:
+        """The columns ``names`` (all by default) stacked into a (plen,
+        ncol) float32 matrix on the frame's device
+        (``h2o_tpu/frame/frame.py:183``); string columns refuse."""
+        cols = [self.vec(n) for n in (self._names if names is None
+                                      else names)]
+        if any(c.data is None for c in cols):
+            raise ValueError("string columns have no device matrix")
+        return torch.stack([c.data for c in cols], dim=1)
+
     def ensure_rollups(self, names: Sequence[str] | None = None) -> None:
         """Compute every missing column rollup: coded columns in code space,
         batched per code width (``chunks.batch_code_rollups``), the others

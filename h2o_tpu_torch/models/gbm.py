@@ -558,8 +558,11 @@ class GBM(ModelBuilder):
             nedges_np, cfg.nbins + 1, cfg.block_rows,
             budget_bytes=hbm_budget_bytes(dev),
             n_lv_max=2 ** max(cfg.max_depth - 1, 0), nvals=3)
-        # categorical SET splits whenever a feature is categorical
-        cfg = dataclasses.replace(cfg, use_sets=bool(is_cat.any()),
+        # categorical SET splits whenever a feature is categorical; RuleFit's
+        # forests opt out (its rule language is threshold conjunctions)
+        use_sets = bool(is_cat.any()) and getattr(self, "_use_set_splits",
+                                                  True)
+        cfg = dataclasses.replace(cfg, use_sets=use_sets,
                                   block_rows=blk, hist_groups=hist_groups)
         if not self.drf_mode and K == 1 and dist.name in ("laplace",
                                                           "quantile"):

@@ -210,6 +210,17 @@ _FAMILIES = {c.name: c for c in
               NegBinomialF]}
 
 
+def _carried_family(fam) -> tuple[Family, dict]:
+    """A reference family object's counterpart, and its powers as keyword
+    arguments (``from_reference``)."""
+    cls = _FAMILIES.get(fam.name)
+    if cls is None:
+        raise ValueError(f"cannot carry a model of family {fam.name} over")
+    powers = dict(tweedie_variance_power=getattr(fam, "p", 1.5),
+                  theta=getattr(fam, "theta", 1.0))
+    return cls(fam.link_name, **powers), powers
+
+
 # ---------------------------------------------------------------------------
 # device steps
 # ---------------------------------------------------------------------------
@@ -927,14 +938,11 @@ class GLMModel(Model):
         di = DataInfo.carried(ref.dinfo)
         fam = ref.family
         kind = type(ref).__name__
-        cls = _FAMILIES.get(fam.name)
-        if cls is None or kind not in ("GLMModel", "GLMMultinomialModel",
-                                       "GLMOrdinalModel", "HGLMModel"):
+        if kind not in ("GLMModel", "GLMMultinomialModel", "GLMOrdinalModel",
+                        "HGLMModel"):
             raise ValueError(f"cannot carry a {kind} of family {fam.name} "
                              f"over")
-        powers = dict(tweedie_variance_power=getattr(fam, "p", 1.5),
-                      theta=getattr(fam, "theta", 1.0))
-        family = cls(fam.link_name, **powers)
+        family, powers = _carried_family(fam)
         out = ModelOutput.carried(ref.output)
         fam_name = {"GLMMultinomialModel": "multinomial",
                     "GLMOrdinalModel": "ordinal"}.get(kind, fam.name)

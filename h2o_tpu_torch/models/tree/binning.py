@@ -28,6 +28,14 @@ _DEFAULT_SKETCH_BUDGET = 4 << 30
 _UNSET = object()  # "resolve the budget from the columns' device"
 
 
+def _pow2_block(R: int, want: int) -> int:
+    """Largest power-of-two divisor of R up to ``want`` (>= 1 always)."""
+    b = 1
+    while b * 2 <= want and R % (b * 2) == 0:
+        b *= 2
+    return b
+
+
 def _sketch_plan(R: int, F: int, nb: int,
                  budget_bytes: int | None) -> tuple[int, int]:
     """(rb, Fb) row- and feature-block sizes for the quantile sketch from a
@@ -70,11 +78,13 @@ def _bin_counts(X: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return counts[:F * nb].reshape(F, nb).to(torch.float32)
 
 
-def _hist_quantile_rows(X: torch.Tensor, qs) -> torch.Tensor:
+def _hist_quantile_rows(X: torch.Tensor, qs,
+                        fused: bool = True) -> torch.Tensor:
     """(nq, F) per-column quantiles via the reference's TWO-PASS histogram
     sketch (``binning.py:_hist_quantile_rows``): pass 1 spans [min, max],
     pass 2 re-bins inside the [0.1%, 99.9%] bracket, and each quantile is
-    read linearly inside its pass-2 bin."""
+    read linearly inside its pass-2 bin. ``fused=False`` rounds the
+    product ``q * (nval - 1)`` before the subtraction below."""
     nb = 1024
     ok = ~torch.isnan(X)
     nval = ok.sum(dim=0).to(torch.float32)
@@ -113,8 +123,11 @@ def _hist_quantile_rows(X: torch.Tensor, qs) -> torch.Tensor:
     # exactly in float64 (a 24x24-bit product minus an integer count fits in
     # 53 bits) and rounded once, as the FMA rounds it; lanes where XLA does
     # not contract still differ by about an ulp of the column's magnitude.
-    num = (q.double() * torch.clamp(nval[None, :] - 1.0, min=0.0).double()
-           - cum_before.double()).to(torch.float32)
+    if fused:
+        num = (q.double() * torch.clamp(nval[None, :] - 1.0, min=0.0).double()
+               - cum_before.double()).to(torch.float32)
+    else:
+        num = target - cum_before
     frac = torch.clamp(num / torch.clamp(cnt, min=1e-30), 0, 1)
     out = lo2[None, :] + (bidx.to(torch.float32) + frac) * span2[None, :] / nb
     return torch.where(nval[None, :] > 0, out, torch.nan)
@@ -144,6 +157,16 @@ def hist_quantile_sketch_cols(cols, qs, budget_bytes=_UNSET) -> np.ndarray:
         blk = torch.stack([_coldata(c) for c in cols[f0:f0 + Fb]], dim=1)
         out[:, f0:f0 + Fb] = _hist_quantile_rows(blk, qs).cpu().numpy()
     return out
+
+
+def hist_quantile_sketch(x: torch.Tensor, qs) -> np.ndarray:
+    """The sketch of one column (``binning.py:155`` on an (R, 1) matrix,
+    GAM's knots): the host (nq,) quantiles. XLA's CPU code for that shape
+    leaves ``q * (nval - 1) - cum_before`` uncontracted in its vector
+    lanes, so the product is rounded here (``fused=False``); in the lanes
+    past the last whole vector of quantiles it contracts, and a knot there
+    may sit a few ulps from the reference's (ROADMAP Queue 3 item 25)."""
+    return _hist_quantile_rows(x[:, None], qs, fused=False)[:, 0].cpu().numpy()
 
 
 def _distinct_values(X: torch.Tensor, cap: int):

@@ -15,7 +15,9 @@ equal up to sign where the eigenvalues are separated); a tiny AutoML plan
 against the CPU (metrics and predictions within 1e-4); the model surface
 of a set-split GBM under three encodings on the card against the CPU
 (encoded columns, covers, leaf ids and paths bit-equal, contributions
-within 1e-5, staged predictions within 1e-6).
+within 1e-5, staged predictions within 1e-6); GAM, RuleFit (built and
+streamed) and CoxPH on the card against the CPU at ``chip_smoke.py``'s
+tolerances for them, each Gram call on the card a launch.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -968,3 +970,99 @@ def test_model_surface_on_the_card_matches_the_cpu(dev, encoding):
         assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
     torch.testing.assert_close(a["phi"], b["phi"], rtol=0, atol=1e-5)
     torch.testing.assert_close(a["staged"], b["staged"], rtol=0, atol=1e-6)
+
+
+def test_gam_on_the_card_matches_the_cpu(dev):
+    """``gam_rulefit_coxph_card_vs_cpu``'s GAM fits at 20k rows: one Gram
+    launch per IRLS iteration; iterations within one, predictions within
+    1e-4, the cr fit's identified coefficients (each cr block with its mean
+    removed) and the second fit's linear coefficients within 1e-4 x max(1,
+    |beta|), its smooths within 1e-4 of their absolute mass."""
+    import chip_smoke as cs
+
+    for kw in ({}, cs.GAM_BS):
+        fits = {}
+        for d in (dev, "cpu"):
+            fr = cs._higgs_frame(20_000, d)
+            before = gram.GRAM_LAUNCHES
+            m = cs._gam(fr, **kw)
+            fits[d] = (m, gram.GRAM_LAUNCHES - before, fr,
+                       m.predict(fr).vec("ps").to_numpy())
+        (a, la, fa, pa), (b, lb, fb, pb) = fits[dev], fits["cpu"]
+        it = a.output.scoring_history[0]["iterations"]
+        assert la == it and lb == 0
+        assert abs(it - b.output.scoring_history[0]["iterations"]) <= 1
+        assert float(np.abs(pa - pb).max()) <= 1e-4
+        lin = np.r_[0:len(a.dinfo.expanded_names), len(a.beta) - 1]
+        ia, ib = cs._gam_identified(a), cs._gam_identified(b)
+        keep = slice(None) if not kw else lin
+        assert np.all(np.abs(ia[keep] - ib[keep])
+                      <= 1e-4 * np.maximum(1.0, np.abs(ib[keep])))
+        for (x, _), (y, mass) in zip(cs._gam_smooths(a, fa),
+                                     cs._gam_smooths(b, fb)):
+            assert np.all(np.abs(x - y) <= 1e-4 * np.maximum(1.0, mass))
+
+
+@pytest.mark.parametrize("budget", ["built", "streamed"])
+def test_rulefit_on_the_card_matches_the_cpu(dev, budget):
+    """RuleFit (5 depth-3 DRF trees) at 20k rows, on the built design and
+    streamed: the same rules, supports and lambda path, coefficients within
+    1e-4 x max(1, |beta|); streamed, one Gram launch per block of every
+    IRLS step."""
+    import chip_smoke as cs
+    from h2o_tpu_torch.models import rulefit
+
+    old = rulefit._STREAM_CELL_BUDGET
+    if budget == "streamed":
+        rulefit._STREAM_CELL_BUDGET = 1
+    try:
+        fits = {}
+        for d in (dev, "cpu"):
+            fr = cs._higgs_frame(20_000, d)
+            before = gram.GRAM_LAUNCHES
+            fits[d] = (cs._rulefit(fr, 5), gram.GRAM_LAUNCHES - before, fr)
+    finally:
+        rulefit._STREAM_CELL_BUDGET = old
+    (a, la, fa), (b, lb, _) = fits[dev], fits["cpu"]
+    assert a.stream == b.stream == (budget == "streamed")
+    assert [r.conds for r in a.rules] == [r.conds for r in b.rules]
+    assert [r.support for r in a.rules] == [r.support for r in b.rules]
+    assert abs(a.lambda_used - b.lambda_used) <= 1e-4 * b.lambda_used
+    assert np.all(np.abs(a.beta - b.beta)
+                  <= 1e-4 * np.maximum(1.0, np.abs(b.beta)))
+    if a.stream:
+        blocks = -(-fa.vec(0).plen // a.stream_block_rows)
+        assert la == a.stream_steps * blocks and lb == 0
+        assert (a.stream_steps, a.lambdas_walked) == (b.stream_steps,
+                                                      b.lambdas_walked)
+
+
+def test_coxph_on_the_card_matches_the_cpu(dev):
+    """CoxPH (Efron, 4 strata) on 50k rows of ``chip_smoke``'s survival
+    frame: bit-equal twice on the card, two Gram launches per Newton pass;
+    coefficients within 1e-5 x max(1, |beta|), the log-likelihood within a
+    relative 1e-6 and the baseline hazard within a relative 1e-5 of the
+    CPU's."""
+    import chip_smoke as cs
+
+    fits = {}
+    for d in (dev, dev, "cpu"):
+        fr = cs._survival_frame(50_000, d)
+        before = gram.GRAM_LAUNCHES
+        m = cs._coxph(fr)
+        fits.setdefault(str(d), []).append((m, gram.GRAM_LAUNCHES - before))
+    (a, la), (a2, _) = fits[str(dev)]
+    (b, lb), = fits["cpu"]
+    names = list(b.coefficients)
+    assert [a.coefficients[k] for k in names] == \
+        [a2.coefficients[k] for k in names]
+    assert la == 2 * a.newton_passes and lb == 0
+    ca = np.array([a.coefficients[k] for k in names])
+    cb = np.array([b.coefficients[k] for k in names])
+    assert np.all(np.abs(ca - cb) <= 1e-5 * np.maximum(1.0, np.abs(cb)))
+    la_, lb_ = (m.output.training_metrics.loglik for m in (a, b))
+    assert abs(la_ - lb_) <= 1e-6 * abs(lb_)
+    for k in b.baseline:
+        assert np.array_equal(a.baseline[k][0], b.baseline[k][0])
+        np.testing.assert_allclose(a.baseline[k][1], b.baseline[k][1],
+                                   rtol=1e-5, atol=0)

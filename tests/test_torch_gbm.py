@@ -242,7 +242,9 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.tree.shap, h2o_tpu_torch.utils.linalg, "
             "h2o_tpu_torch.models.anovaglm, "
             "h2o_tpu_torch.models.modelselection, "
-            "h2o_tpu_torch.utils.optim; "
+            "h2o_tpu_torch.utils.optim, h2o_tpu_torch.models.gam, "
+            "h2o_tpu_torch.models.rulefit, h2o_tpu_torch.models.coxph, "
+            "h2o_tpu_torch.mojo.format; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
