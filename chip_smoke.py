@@ -22,7 +22,9 @@ predictions, categorical encodings, custom metrics); and the rest of GLM
 (p-values, L_BFGS, box and linear constraints, alpha lists, ``ml``
 dispersion, interactions, HGLM, the ordinal family) with ANOVA GLM and
 ModelSelection over it; and the Gram's other users (GAM with all four
-spline bases, RuleFit over a streamed rule design, CoxPH). In order:
+spline bases, RuleFit over a streamed rule design, CoxPH); and models
+out, data in (MOJO and POJO export, the standalone MOJO scorer and
+Generic models; SVMLight, ARFF and XLSX import). In order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -100,6 +102,26 @@ spline bases, RuleFit over a streamed rule design, CoxPH). In order:
    requires one Gram launch per IRLS iteration, no histogram launch, a
    finite training AUC above 0.6, residual below null deviance, finite
    coefficients and predictions;
+8b. ``mojo_export``: ``train``'s GBM and ``glm_train``'s GLM exported as
+    MOJOs and POJOs, each MOJO loaded by the port's standalone scorer and
+    as a ``Generic`` model and scored on the HIGGS frame's first 1,000,000
+    rows (``MOJO_ROWS``) on the host, against the card's ``predict``:
+    probabilities within ``tests/test_mojo.py``'s round-trip tolerances
+    (atol 1e-5, rtol 1e-4; GLM atol 1e-4), the Generic frame on the card
+    and bit-equal to the scorer's output cast to float32, the GBM POJO one
+    method a tree, the GLM POJO's coefficients the MOJO's; then a
+    set-split airlines GBM (1M rows, 5 trees: 25 grouped launches) whose
+    MOJO holds bitset nodes and whose POJO holds set-split groups, and the
+    multinomial covertype DRF at ``drf_card_vs_cpu``'s size (its plan's
+    wrapper, 2 x 7 x 12 launches), each exported and scored on its own
+    rows likewise; export walls, MOJO and POJO bytes, the scorer's rows/s
+    beside the card ``predict``'s; no launch while exporting or scoring;
+8c. ``import_formats``: 250,000 HIGGS-shaped rows (``FORMAT_ROWS``, seed 7)
+    written as SVMLight and ARFF and 20,000 (``XLSX_ROWS``) as XLSX, each
+    imported on the card with every float32 value and the response's
+    codes bit-equal to the generator's (write and parse walls, MB/s,
+    rows/s); then a 5-tree bernoulli GBM on the SVMLight frame: 25 flat
+    launches, AUC above 0.6;
 9. ``glm_cod_train``: the same with ``solver="COORDINATE_DESCENT"``;
 9b. ``glm_pvalues_higgs``: IRLSM at lambda 0 with ``compute_p_values``:
     Gram launches = iterations + 1 (the Fisher pass), std errors finite
@@ -318,7 +340,7 @@ spline bases, RuleFit over a streamed rule design, CoxPH). In order:
 26b. ``glm_ordinal_covtype``: the ordinal family on that frame, its 7
     classes taken as ordered (full-batch Adam, no kernel): thresholds
     strictly increasing, mean per-class error below 6/7, steps and wall;
-27. ``ensemble_covtype``: a 3-fold GBM (10 trees, depth 5), DRF (10
+27. ``ensemble_covtype``: a 2-fold GBM (10 trees, depth 5), DRF (10
     trees) and multinomial GLM under the AUTO metalearner: 21 level-one
     columns, class probabilities finite, rows summing to 1 within 1e-5;
 28. ``automl_card_vs_cpu``: a plan with every algo (DeepLearning and a
@@ -363,9 +385,9 @@ spline bases, RuleFit over a streamed rule design, CoxPH). In order:
     hazard within 1e-5).
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
-phase keeps, it returns. Scratch files (CSVs, model files, snapshot and
-recovery directories) go to the git-ignored ``.chip_smoke/`` and are
-removed after each phase.
+phase keeps, it returns. Scratch files (CSVs, SVMLight, ARFF and XLSX
+files, MOJOs and POJOs, model files, snapshot and recovery directories)
+go to the git-ignored ``.chip_smoke/`` and are removed after each phase.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (with each kernel's launches per path; the wrapper the covertype
@@ -375,7 +397,8 @@ GLM's class-block design, at the p-values' Fisher pass, at the
 interaction design, at ModelSelection's [X | 1 | y], at GAM's design, at
 a streamed RuleFit block and at a CoxPH Newton pass; the flat entry
 carries GBM def_5's deep levels; each histogram entry the encoded
-airlines models' root levels that took its wrapper), and last
+airlines models' root levels that took its wrapper; ``mojo_export``'s
+and ``import_formats``' trainings under ``launches_by_path``), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -441,6 +464,9 @@ AUTOML_MAX_MODELS = 10         # automl_higgs: cut from 13 for the clock
                                # ~14 s, go; GBM def_5, whose deep levels
                                # the kernel line reports, is the 10th;
                                # automl_card_vs_cpu still runs a grid)
+ENSEMBLE_FOLDS = 2             # ensemble_covtype: CV folds (cut from 3
+                               # for the clock when the MOJO/formats
+                               # phases came)
 AUTOML_CPU_ROWS = 20_000       # automl_card_vs_cpu: HIGGS and covertype rows
 AUTOML_CPU_FOLDS = 2           # automl_card_vs_cpu: CV folds (3 until
                                # the GAM/RuleFit/CoxPH slice, cut for the
@@ -449,6 +475,16 @@ DL_PROFILED_EPOCHS = (0.02, 0.06)  # dl_mnist: the two profiled builds
                                # (0.05 and 0.15 epochs until the GAM/
                                # RuleFit/CoxPH slice, cut for the clock)
 GRID_ROWS = 100_000            # grid_recovery: HIGGS rows
+MOJO_ROWS = 1_000_000          # mojo_export: the rows each MOJO scores
+                               # (the DRF's: all DRF_CPU_ROWS)
+MOJO_AIRLINES_ROWS = 1_000_000  # mojo_export: the set-split GBM's rows
+MOJO_ATOL, MOJO_RTOL = 1e-5, 1e-4  # tests/test_mojo.py:_roundtrip
+MOJO_GLM_ATOL = 1e-4           # tests/test_mojo.py:test_glm_mojo
+FORMAT_ROWS = 250_000          # import_formats: HIGGS rows of the
+                               # SVMLight and ARFF files
+XLSX_ROWS = 20_000             # import_formats: HIGGS rows of the XLSX
+                               # file (cut from 250,000: the reader walks
+                               # every cell of the sheet's XML in Python)
 #: what H2O's airlines demos pass to import_file
 IMPORT_COL_TYPES = {"Year": "enum", "Month": "enum", "DayofMonth": "enum",
                     "DayOfWeek": "enum"}
@@ -1435,9 +1471,9 @@ def phase_gram(dev) -> dict:
                                       wide["max_abs_err"]))
 
 
-def _glm_train(dev, fr, what: str, **kw) -> int:
+def _glm_train(dev, fr, what: str, **kw) -> tuple[int, object]:
     """One GLM fit of ``bench.py``'s settings on the HIGGS frame and its
-    checks; returns its Gram launches."""
+    checks; returns its Gram launches and the model."""
     import torch
 
     from h2o_tpu_torch.backend.kernels import gram, hist
@@ -1473,6 +1509,291 @@ def _glm_train(dev, fr, what: str, **kw) -> int:
            f"null deviance {m.null_deviance}")
     _check(bool(np.isfinite(model.beta).all()), f"{what}: coefficients")
     _check(finite and p1.shape == (fr.nrow,), f"{what}: predictions")
+    return launches, model
+
+
+def _mojo_roundtrip(dev, model, fr, what: str, atol: float,
+                    pojo: bool) -> dict:
+    """``model`` exported as a MOJO (and a POJO), loaded by the port's
+    standalone scorer and as a ``Generic`` model, and ``fr``'s rows scored
+    on the host against the card's ``predict``: probabilities (or the
+    regression value) within ``atol`` and ``MOJO_RTOL``; the Generic
+    frame on the card, bit-equal to the scorer's output cast to float32.
+    No kernel launches (the counts are read by the caller)."""
+    import torch
+
+    from h2o_tpu_torch import MojoModel, import_mojo
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, f"{what}.zip")
+    t0 = time.perf_counter()
+    model.save_mojo(path)
+    export_s = time.perf_counter() - t0
+    out = dict(rows=fr.nrow, export_s=export_s,
+               mojo_bytes=os.path.getsize(path))
+    if pojo:
+        jpath = os.path.join(DATA_DIR, f"{what}.java")
+        t0 = time.perf_counter()
+        model.save_pojo(jpath)
+        out.update(pojo_export_s=time.perf_counter() - t0,
+                   pojo_bytes=os.path.getsize(jpath))
+        with open(jpath) as fh:
+            out["pojo_source"] = fh.read()
+        os.remove(jpath)
+    t0 = time.perf_counter()
+    scorer = MojoModel.load(path)
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = scorer.feature_frame_matrix(fr)     # one host copy a column
+    out["adapt_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = scorer.score(X)
+    out["score_s"] = time.perf_counter() - t0
+    del X
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    cols = [pred.vec(i).data[:fr.nrow] for i in range(pred.ncol)]
+    torch.cuda.synchronize()
+    out["predict_s"] = time.perf_counter() - t0
+    want = torch.stack(cols, dim=1).double().cpu().numpy()
+    if got.ndim == 1:
+        a, b = got, want[:, 0]
+    else:
+        a, b = got[:, 1:], want[:, 1:want.shape[1]]
+        _check(got.shape[1] == want.shape[1],
+               f"{what}: MOJO gives {got.shape[1]} columns, predict "
+               f"{want.shape[1]}")
+    err = float(np.abs(a - b).max())
+    _check(bool(np.isfinite(got).all()), f"{what}: MOJO scores not finite")
+    _check(bool(np.allclose(a, b, atol=atol, rtol=MOJO_RTOL)),
+           f"{what}: MOJO scores off the card's predict by {err} (atol "
+           f"{atol}, rtol {MOJO_RTOL})")
+    t0 = time.perf_counter()
+    g = import_mojo(path, device=dev)
+    gp = g.predict(fr)
+    torch.cuda.synchronize()
+    out["generic_s"] = time.perf_counter() - t0
+    g32 = got.astype(np.float32).reshape(fr.nrow, -1)
+    for j in range(gp.ncol):
+        v = gp.vec(j).data
+        _check(v.device.type == dev.type, f"{what}: Generic frame on "
+                                          f"{v.device}")
+        _check(np.array_equal(v[:fr.nrow].cpu().numpy().view(np.int32),
+                              g32[:, j].view(np.int32)),
+               f"{what}: Generic column {j} differs from the scorer's")
+    os.remove(path)
+    out.update(max_abs_err=err, scorer_rows_per_s=fr.nrow / out["score_s"],
+               predict_rows_per_s=fr.nrow / out["predict_s"])
+    out["scorer"] = scorer
+    return out
+
+
+def _report_mojo(what: str, r: dict) -> None:
+    print("mojo_export", what, json.dumps(
+        {k: v for k, v in r.items() if k not in ("scorer", "pojo_source")}),
+        flush=True)
+
+
+def _bitset_nodes(scorer) -> int:
+    """The bitset (set-split) nodes of a tree MOJO's decoded trees."""
+    count = 0
+    for row in scorer.trees:
+        stack = [t for t in row if t is not None]
+        while stack:
+            nd = stack.pop()
+            if nd.leaf_val is None:
+                count += nd.bitset is not None
+                stack.extend([nd.left, nd.right])
+    return count
+
+
+def phase_mojo_export(dev, higgs, gbm, glm) -> dict:
+    """MOJO and POJO export of the flagship GBM (``train``'s model) and
+    the IRLSM GLM (``glm_train``'s), scored on the HIGGS frame's first
+    MOJO_ROWS rows; then a set-split airlines GBM (MOJO_AIRLINES_ROWS
+    rows, 5 trees, the grouped kernel) and the multinomial covertype DRF
+    at ``drf_card_vs_cpu``'s size (the plan's wrapper), each trained here
+    with its launches counted, exported and scored on its own rows.
+    Returns the flat and grouped launches of the two trainings."""
+    import re
+
+    import torch
+
+    from h2o_tpu_torch.backend.kernels import gram, hist
+
+    sub = higgs.take(np.arange(MOJO_ROWS))
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    r = _mojo_roundtrip(dev, gbm, sub, "higgs_gbm", MOJO_ATOL, pojo=True)
+    _check(r["pojo_source"].count("static double tree_") == gbm.ntrees,
+           "higgs_gbm: the POJO lacks a tree method")
+    _report_mojo("higgs_gbm", r)
+    r = _mojo_roundtrip(dev, glm, sub, "higgs_glm", MOJO_GLM_ATOL, pojo=True)
+    beta = [float(t) for t in re.search(r"double\[\] BETA = \{ (.*?) \}",
+                                        r["pojo_source"]).group(1)
+            .split(",")]
+    _check(np.array_equal(np.array(beta), r["scorer"].beta),
+           "higgs_glm: the POJO's coefficients differ from the MOJO's")
+    _report_mojo("higgs_glm", r)
+    _check(hist.LAUNCHES + hist.GROUPED_LAUNCHES + gram.GRAM_LAUNCHES == 0,
+           "exporting or scoring a MOJO launched a kernel")
+    del sub
+
+    air = _airlines_frame(MOJO_AIRLINES_ROWS, dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _gbm(air, ntrees=5, response="IsDepDelayed")
+    train_s = time.perf_counter() - t0
+    launches = dict(flat=hist.LAUNCHES, grouped=hist.GROUPED_LAUNCHES)
+    _check(launches == dict(flat=0, grouped=25) and gram.GRAM_LAUNCHES == 0,
+           f"airlines GBM: {launches}, want 25 grouped launches")
+    r = _mojo_roundtrip(dev, model, air, "airlines_gbm", MOJO_ATOL,
+                        pojo=True)
+    sets = _bitset_nodes(r["scorer"])
+    _check(sets >= 1, "airlines_gbm: no bitset node in the MOJO")
+    _check("static final boolean[] GRP_" in r["pojo_source"],
+           "airlines_gbm: no set-split group in the POJO")
+    r.update(train_s=train_s, bitset_nodes=sets)
+    _report_mojo("airlines_gbm", r)
+    del air, model
+
+    cov = _covtype_frame(DRF_CPU_ROWS, dev)
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _drf(cov, DRF_CPU_ITERATIONS)
+    train_s = time.perf_counter() - t0
+    drf = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+    want = DRF_CPU_ITERATIONS * 7 * 12
+    _check(drf == want and gram.GRAM_LAUNCHES == 0,
+           f"covertype DRF: {drf} histogram launches, want {want}")
+    launches["flat"] += hist.LAUNCHES
+    launches["grouped"] += hist.GROUPED_LAUNCHES
+    r = _mojo_roundtrip(dev, model, cov, "covtype_drf", MOJO_ATOL,
+                        pojo=False)
+    _check(r["scorer"].algo == "drf" and r["scorer"].tpc == 7,
+           "covtype_drf: not a 7-class DRF MOJO")
+    r.update(train_s=train_s)
+    _report_mojo("covtype_drf", r)
+    return launches
+
+
+def _write_svmlight_arff(svm_path: str, arff_path: str, X, y) -> None:
+    """(X, y) as an SVMLight file (indices from 0) and an ARFF file (the
+    response nominal {b,s}), in one pass, each value with nine significant
+    digits: the decimal lies within 5e-9 of the float32 relative to its
+    magnitude, far inside its rounding interval (3e-8), so it parses back
+    through float64 to the same float32."""
+    F = X.shape[1]
+    svm_row = "%d " + " ".join(f"{j}:%.9g" for j in range(F)) + "\n"
+    arff_row = ",".join(["%.9g"] * F) + ",%s\n"
+    with open(svm_path, "w") as svm, open(arff_path, "w") as arff:
+        arff.write("% HIGGS-shaped rows\n@relation higgs\n"
+                   + "".join(f"@attribute f{j} numeric\n" for j in range(F))
+                   + "@attribute response {b,s}\n@data\n")
+        for r0 in range(0, X.shape[0], 25_000):
+            rows = X[r0:r0 + 25_000].astype(np.float64).tolist()
+            labs = y[r0:r0 + 25_000].astype(np.int64).tolist()
+            for lab, row in zip(labs, rows):
+                svm.write(svm_row % (lab, *row))
+                arff.write(arff_row % (*row, "bs"[lab]))
+
+
+def phase_import_formats(dev) -> int:
+    """HIGGS-shaped files in three more formats: SVMLight and ARFF of
+    FORMAT_ROWS rows, XLSX of XLSX_ROWS; each imported on the card with
+    every float32 value (and the response's codes) bit-equal to the
+    generator's; then a 5-tree bernoulli GBM on the SVMLight frame through
+    the flat kernel. Returns its flat launches."""
+    import torch
+
+    from h2o_tpu_torch import import_file
+    from h2o_tpu_torch.backend.kernels import gram, hist
+    from h2o_tpu_torch.io.xlsx import write_xlsx
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    cols, y = _higgs_cols(FORMAT_ROWS, seed=7)
+    X = np.stack([cols[f"f{j}"] for j in range(HIGGS_F)], axis=1)
+    del cols
+    out, frames = {}, {}
+
+    def check(fr, what, names, nrow):
+        _check(fr.nrow == nrow and fr.device.type == dev.type,
+               f"{what}: {fr.nrow} rows on {fr.device}")
+        for j, name in enumerate(names):
+            got = fr.vec(name).data[:nrow].cpu().numpy()
+            _check(np.array_equal(got.view(np.int32),
+                                  X[:nrow, j].view(np.int32)),
+                   f"{what}: column {name} differs from the generator's")
+
+    paths = {w: os.path.join(DATA_DIR, f"higgs.{w}")
+             for w in ("svmlight", "arff")}
+    t0 = time.perf_counter()
+    _write_svmlight_arff(paths["svmlight"], paths["arff"], X, y)
+    out["svmlight_arff_write_s"] = time.perf_counter() - t0
+    nrow = FORMAT_ROWS
+    for what, path in paths.items():
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fr = import_file(path, device=dev)
+        parse_s = time.perf_counter() - t0
+        os.remove(path)
+        if what == "svmlight":
+            check(fr, what, [f"C{j}" for j in range(HIGGS_F)], nrow)
+            _check(np.array_equal(fr.vec("target").data[:nrow].cpu().numpy(),
+                                  y[:nrow]), "svmlight: target differs")
+        else:
+            check(fr, what, [f"f{j}" for j in range(HIGGS_F)], nrow)
+            resp = fr.vec("response")
+            _check(resp.domain == ["b", "s"] and np.array_equal(
+                resp.data[:nrow].cpu().numpy(), y[:nrow]),
+                "arff: response codes differ")
+        frames[what] = fr
+        out[what] = dict(rows=nrow, parse_s=parse_s, mb=size / 1e6,
+                         mb_per_s=size / 1e6 / parse_s,
+                         rows_per_s=nrow / parse_s)
+    path = os.path.join(DATA_DIR, "higgs.xlsx")
+    header = [f"f{j}" for j in range(HIGGS_F)] + ["response"]
+    t0 = time.perf_counter()
+    write_xlsx(path, header, [
+        row + ["bs"[int(lab)]] for row, lab in
+        zip(X[:XLSX_ROWS].astype(np.float64).tolist(), y[:XLSX_ROWS])])
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    fr = import_file(path, device=dev)
+    parse_s = time.perf_counter() - t0
+    os.remove(path)
+    check(fr, "xlsx", header[:-1], XLSX_ROWS)
+    resp = fr.vec("response")
+    _check(resp.domain == ["b", "s"] and np.array_equal(
+        resp.data[:XLSX_ROWS].cpu().numpy(), y[:XLSX_ROWS]),
+        "xlsx: response codes differ")
+    out["xlsx"] = dict(rows=XLSX_ROWS, write_s=write_s, parse_s=parse_s,
+                       mb=size / 1e6, mb_per_s=size / 1e6 / parse_s,
+                       rows_per_s=XLSX_ROWS / parse_s)
+    del fr, frames["arff"]
+
+    from h2o_tpu_torch import GBM, GBMParameters
+
+    fr = frames.pop("svmlight")
+    hist.LAUNCHES = hist.GROUPED_LAUNCHES = gram.GRAM_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = GBM(GBMParameters(training_frame=fr, response_column="target",
+                              distribution="bernoulli", ntrees=5,
+                              max_depth=5, nbins=20, learn_rate=0.1,
+                              seed=42)).train_model()
+    train_s = time.perf_counter() - t0
+    launches = hist.LAUNCHES
+    _check(launches == 25 and hist.GROUPED_LAUNCHES == 0
+           and gram.GRAM_LAUNCHES == 0,
+           f"svmlight GBM: {launches} flat launches, want 25")
+    auc = model.output.training_metrics.auc
+    _check(bool(np.isfinite(auc)) and auc > 0.6, f"svmlight GBM: AUC {auc}")
+    out["gbm"] = dict(train_s=train_s, auc=auc, flat_launches=launches)
+    print("import_formats", json.dumps(out), flush=True)
     return launches
 
 
@@ -3154,7 +3475,8 @@ def phase_glm_multinomial_covtype(dev, fr) -> tuple[int, dict]:
 
 
 def phase_ensemble_covtype(dev, fr) -> dict:
-    """A stacked ensemble on the covertype-shaped frame: 3-fold CV (Modulo,
+    """A stacked ensemble on the covertype-shaped frame: 2-fold CV
+    (``ENSEMBLE_FOLDS``, cut from 3; Modulo,
     holdout predictions kept) bases — a multinomial GBM (10 trees, depth
     5), a DRF (10 trees) and the multinomial GLM (lambda 1e-4, as in
     ``_multinomial_glm``) — under the AUTO
@@ -3168,8 +3490,8 @@ def phase_ensemble_covtype(dev, fr) -> dict:
                                GLMParameters, StackedEnsemble,
                                StackedEnsembleParameters)
 
-    common = dict(training_frame=fr, response_column="Cover_Type", nfolds=3,
-                  fold_assignment="Modulo", seed=42,
+    common = dict(training_frame=fr, response_column="Cover_Type",
+                  nfolds=ENSEMBLE_FOLDS, fold_assignment="Modulo", seed=42,
                   keep_cross_validation_predictions=True)
     _reset_counts()
     torch.cuda.synchronize()
@@ -4990,7 +5312,6 @@ def main() -> int:
     ckpt_launches = run("checkpoint_higgs", lambda d: phase_checkpoint_higgs(
         d, higgs, higgs_model))
     run("shap_higgs", lambda d: phase_shap_higgs(d, higgs, higgs_model))
-    del higgs_model
     xgb_launches = run("xgboost_train",
                        lambda d: phase_xgboost_train(d, higgs))
     run("card_vs_cpu", phase_card_vs_cpu)
@@ -4998,8 +5319,12 @@ def main() -> int:
     grouped_launches = run("airlines_train", phase_airlines_train)
     run("airlines_card_vs_cpu", phase_airlines_card_vs_cpu)
     gram_nums = run("gram", phase_gram)
-    gram_launches = run("glm_train", lambda d: _glm_train(d, higgs,
-                                                          "glm_train"))
+    gram_launches, higgs_glm = run("glm_train", lambda d: _glm_train(
+        d, higgs, "glm_train"))
+    mojo = run("mojo_export", lambda d: phase_mojo_export(
+        d, higgs, higgs_model, higgs_glm))
+    del higgs_model, higgs_glm
+    fmt_launches = run("import_formats", phase_import_formats)
     run("glm_cod_train", lambda d: _glm_train(
         d, higgs, "glm_cod_train", solver="COORDINATE_DESCENT"))
     pv_launches, irlsm, gram_at_pvalues = run(
@@ -5109,11 +5434,14 @@ def main() -> int:
                                 automl_card_vs_cpu=cvc_launches["flat"],
                                 grid_recovery=grid_launches,
                                 rulefit_higgs=rf_launches["flat"],
+                                mojo_export=mojo["flat"],
+                                import_formats=fmt_launches,
                                 gam_rulefit_coxph_card_vs_cpu=grc_launches[
                                     "flat"]),
              "level_hist_grouped": dict(airlines_train=grouped_launches,
                                         import_cv_gbm=cv_gbm_launches,
-                                        compress_airlines=cmp_launches),
+                                        compress_airlines=cmp_launches,
+                                        mojo_export=mojo["grouped"]),
              "gram": dict(glm_train=gram_launches,
                           xgboost_gblinear=gblinear_launches,
                           import_cv_glm=cv_glm_launches,

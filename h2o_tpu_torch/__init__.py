@@ -48,7 +48,12 @@ one Gram launch per penalized IRLS iteration), ``RuleFit`` (rules from DRF
 or GBM sub-forests, the L1 path over a built design or, past 2^29 cells,
 a design streamed block by block through the Gram kernel) and ``CoxPH``
 (Efron or Breslow ties, strata, two Gram launches per Newton pass, the
-Breslow baseline hazard and ``survfit``).
+Breslow baseline hazard and ``survfit``). Models out, data in: MOJO and
+POJO export of every model kind the reference exports
+(``Model.save_mojo``/``save_pojo``, ``mojo/writer.py``, ``mojo/pojo.py``),
+the standalone host scorer of every MOJO kind (``MojoModel``,
+``mojo/reader.py``) and ``Generic`` models over it, and ``import_file``
+of Avro, XLSX, XLS, SVMLight and ARFF files.
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -83,6 +88,8 @@ from .models.ensemble import (StackedEnsemble, StackedEnsembleModel,
                               StackedEnsembleParameters)
 from .models.explain import partial_dependence, permutation_varimp
 from .models.gam import GAM, GAMModel, GAMParameters
+from .models.generic import (Generic, GenericModel, GenericParameters,
+                             import_mojo)
 from .models.glm import GLM, GLMModel, GLMMultinomialModel, GLMParameters
 from .models.grid import (Grid, GridSearch, SearchCriteria, export_grid,
                           import_grid)
@@ -94,6 +101,7 @@ from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
     SVDParameters
 from .models.rulefit import RuleFit, RuleFitModel, RuleFitParameters
 from .models.xgboost import XGBoost, XGBoostParameters
+from .mojo import MojoModel
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "GBM", "GBMModel", "GBMParameters", "DRF", "DRFModel",
@@ -112,4 +120,5 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "ModelSelection", "ModelSelectionModel",
            "ModelSelectionParameters", "GAM", "GAMModel", "GAMParameters",
            "RuleFit", "RuleFitModel", "RuleFitParameters", "CoxPH",
-           "CoxPHModel", "CoxPHParameters"]
+           "CoxPHModel", "CoxPHParameters", "Generic", "GenericModel",
+           "GenericParameters", "import_mojo", "MojoModel"]

@@ -32,8 +32,17 @@ reader, which are pyarrow's, writing each column's fields into a
 fixed-width byte matrix. The columns are then typed with numpy: integers
 parsed from the digits, floats by numpy's correctly rounded conversion,
 levels interned by a sort of the fields' bytes. Plain, ``.gz`` and ``.zip``
-(first member) files; other formats raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 3).
+(first member) files.
+
+The other formats the reference reads without pyarrow take its readers
+and its column typing: Avro containers (``io/avro.py``), XLSX and legacy
+XLS sheets (``io/xlsx.py``, ``io/xls.py``: first row the header, a column
+holding any string interned as a categorical), SVMLight (``target`` then
+``C0..Cmax`` float32 columns, absent entries 0) and ARFF (the
+``@attribute`` lines type the columns). Their categorical levels are
+interned here, sorted as Python sorts strings, as pyarrow's dictionary
+and the reference's renumbering give them. Parquet and ORC need pyarrow
+and raise ``NotImplementedError`` (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import ctypes
 import datetime
 import gzip
 import hashlib
+import itertools
 import os
 import re
 import shutil
@@ -63,9 +73,8 @@ from ..utils import failpoints, knobs
 DEFAULT_NA_STRINGS = ["", "NA", "N/A", "na", "NaN", "nan", "null", "NULL",
                       "?", "None"]
 
-#: formats the reference reads and the port does not yet
-OTHER_FORMATS = (".parquet", ".pq", ".orc", ".avro", ".svm", ".svmlight",
-                 ".xlsx", ".xls", ".arff")
+#: formats the reference reads through pyarrow, which the port does not
+OTHER_FORMATS = (".parquet", ".pq", ".orc")
 
 _TRUE = (b"1", b"True", b"TRUE", b"true")      # pyarrow's boolean spellings
 _FALSE = (b"0", b"False", b"FALSE", b"false")
@@ -103,9 +112,8 @@ def _refuse_format(path: str) -> None:
             "(ROADMAP Queue 1 item 13)")
     if path.lower().endswith(OTHER_FORMATS):
         raise NotImplementedError(
-            f"{os.path.basename(path)}: only CSV/TSV (plain, .gz, .zip) is "
-            "ported; parquet and orc need pyarrow, avro, xlsx, xls, "
-            "svmlight and arff come later (ROADMAP Queue 1 item 3)")
+            f"{os.path.basename(path)}: parquet and orc need pyarrow, "
+            "which the port does without (ROADMAP Queue 1 item 3)")
 
 
 def _read_bytes(path: str, limit: int | None = None) -> bytes:
@@ -496,13 +504,230 @@ def _convert(s: np.ndarray, name: str, want, setup: ParseSetup,
     return _intern(s, str_null, device)
 
 
+# ---------------------------------------------------------------------------
+# Avro, spreadsheets, SVMLight and ARFF (the reference's
+# ``_parse_avro``/``_spreadsheet_to_frame``/``_parse_svmlight``/``_parse_arff``)
+# ---------------------------------------------------------------------------
+def _intern_strings(vals, device) -> Vec:
+    """A column of strings (None for NA) as a categorical, through the
+    CSV path's interning (levels in UTF-8 byte order, which is Python's
+    string order)."""
+    null = np.array([v is None for v in vals], dtype=bool)
+    s = np.array([b"" if v is None else v.encode("utf-8") for v in vals],
+                 dtype=np.bytes_)
+    return _intern(s, null, device)
+
+
+def _parse_avro(path: str, device, dest_key: str | None = None) -> Frame:
+    """Avro container ingest (``io/avro.py``; `h2o-parsers/h2o-avro-parser`:
+    flat records -> columns). Enums are categoricals over the schema's
+    symbols, strings host columns, NA-free int/long columns exact
+    integers, everything else float64 cast by ``Vec.from_numpy``."""
+    from .avro import read_avro
+
+    names, cols, domains, types = read_avro(path)
+    out = {}
+    for name, vals, dom, prim in zip(names, cols, domains, types):
+        if dom is not None:
+            lut = {s: i for i, s in enumerate(dom)}
+            arr = np.array([np.nan if v is None else lut[v] for v in vals],
+                           dtype=np.float32)
+            out[name] = Vec.from_numpy(arr, type=T_CAT, domain=list(dom),
+                                       device=device)
+        elif prim in ("string", "bytes", "fixed"):
+            out[name] = Vec.from_numpy(np.array(
+                [None if v is None else
+                 (v.decode("utf-8", "replace") if isinstance(v, bytes)
+                  else str(v)) for v in vals], dtype=object))
+        elif prim in ("int", "long") and not any(v is None for v in vals):
+            out[name] = Vec.from_numpy(np.array(vals, dtype=np.int64),
+                                       device=device)
+        else:
+            arr = np.array([np.nan if v is None else float(v) for v in vals],
+                           dtype=np.float64)
+            out[name] = Vec.from_numpy(arr, device=device)
+    return Frame(list(out), list(out.values()), key=dest_key)
+
+
+def _spreadsheet_to_frame(header, rows, device,
+                          dest_key: str | None = None) -> Frame:
+    """The XLSX and XLS cell grid -> Frame: duplicate header names take a
+    count suffix, a column holding any string is a categorical (its other
+    cells as their ``str``), the rest float64."""
+    seen: dict[str, int] = {}
+    uniq = []
+    for name in header:
+        if name in seen:
+            seen[name] += 1
+            uniq.append(f"{name}{seen[name]}")
+        else:
+            seen[name] = 0
+            uniq.append(name)
+    out = {}
+    for j, name in enumerate(uniq):
+        vals = [r[j] if j < len(r) else None for r in rows]
+        if any(isinstance(v, str) for v in vals):
+            out[name] = _intern_strings(
+                [None if v is None else str(v) for v in vals], device)
+        else:
+            arr = np.array([np.nan if v is None else float(v)
+                            for v in vals], dtype=np.float64)
+            out[name] = Vec.from_numpy(arr, device=device)
+    return Frame(list(out), list(out.values()), key=dest_key)
+
+
+def _parse_xlsx(path: str, device, dest_key: str | None = None) -> Frame:
+    """XLSX ingest (``io/xlsx.py``, the first sheet)."""
+    from .xlsx import read_xlsx
+
+    header, rows = read_xlsx(path)
+    return _spreadsheet_to_frame(header, rows, device, dest_key)
+
+
+def _parse_xls(path: str, device, dest_key: str | None = None) -> Frame:
+    """Legacy BIFF8 .xls ingest (``io/xls.py``): the first row is the
+    header, as for XLSX."""
+    from .xls import cells_to_rows, parse_xls_cells
+
+    with open(path, "rb") as fh:
+        grid = cells_to_rows(parse_xls_cells(fh.read()))
+    if not grid:
+        raise ValueError(f"xls: no cells in {path}")
+    header = [str(v) if v is not None else f"C{i + 1}"
+              for i, v in enumerate(grid[0])]
+    return _spreadsheet_to_frame(header, grid[1:], device, dest_key)
+
+
+def _parse_svmlight(path: str, device, dest_key: str | None = None) -> Frame:
+    """SVMLight (`water/parser/SVMLightParser.java`): per line a target and
+    ``index:value`` pairs, ``#`` starting a comment. The frame is
+    ``target`` and ``C0..Cmax`` float32 columns, absent entries 0 (a
+    repeated index keeps its last value). Each value is parsed correctly
+    rounded to float64, then cast to float32, as the reference's
+    ``float()`` and its float32 matrix do."""
+    targets, pairs, counts = [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split("#", 1)[0].split()
+            if not parts:
+                continue
+            targets.append(parts[0])
+            counts.append(len(parts) - 1)
+            pairs.extend(parts[1:])
+    n = len(targets)
+    kv = ":".join(pairs).split(":") if pairs else []
+    if len(kv) != 2 * len(pairs):
+        for p in pairs:         # the pair without one ':' raises here
+            k, v = p.split(":")
+    k = np.array(list(map(int, kv[0::2])), dtype=np.int64)
+    v = np.array(list(map(float, kv[1::2])), dtype=np.float64)
+    max_idx = max(0, int(k.max())) if k.size else 0
+    _check_frame_size(n, max_idx + 2)       # + the target column
+    mat = np.zeros((n, max_idx + 1), dtype=np.float32)
+    mat[np.repeat(np.arange(n), counts), k] = v
+    cols = {"target": np.array([float(t) for t in targets],
+                               dtype=np.float32)}
+    for j in range(max_idx + 1):
+        cols[f"C{j}"] = mat[:, j]
+    return Frame.from_dict(cols, device=device, key=dest_key)
+
+
+def _parse_arff(path: str, device, dest_key: str | None = None) -> Frame:
+    """ARFF (`water/parser/ARFFParser.java`): the ``@attribute`` lines type
+    the columns (numeric, nominal ``{...}`` as a categorical over its listed
+    levels, anything else host strings), the ``@data`` rows parse as CSV
+    with single quotes; ``?`` or an empty cell is NA. Sparse rows raise."""
+    import csv as _csv
+
+    names, kinds, domains = [], [], []
+    data_rows = []
+    in_data = False
+    with open(path) as fh:
+        for raw in fh:
+            line = raw.strip()
+            if not line or line.startswith("%"):
+                continue
+            low = line.lower()
+            if not in_data and low.startswith("@attribute"):
+                rest = line.split(None, 1)[1]
+                if rest.startswith(("'", '"')):
+                    q = rest[0]
+                    end = rest.index(q, 1)
+                    name, spec = rest[1:end], rest[end + 1:].strip()
+                else:
+                    name, _, spec = rest.partition(" ")
+                    spec = spec.strip()
+                names.append(name)
+                if spec.startswith("{"):
+                    kinds.append("enum")
+                    toks = next(_csv.reader([spec.strip("{}")],
+                                            quotechar="'",
+                                            skipinitialspace=True))
+                    domains.append([t.strip().strip("'\"") for t in toks])
+                elif spec.lower() in ("numeric", "integer", "real"):
+                    kinds.append("numeric")
+                    domains.append(None)
+                else:       # string / date / relational: host strings
+                    kinds.append("string")
+                    domains.append(None)
+            elif low.startswith("@data"):
+                in_data = True
+            elif in_data:
+                if line.startswith("{"):
+                    raise NotImplementedError(
+                        "sparse-format ARFF ({index value, ...} rows) is not "
+                        "supported — densify or convert to CSV")
+                # ARFF quotes with single quotes; a row without one splits
+                # on commas as the csv reader would
+                data_rows.append(
+                    next(_csv.reader([line], quotechar="'")) if "'" in line
+                    else line.split(","))
+    n = len(data_rows)
+    # the cells column by column, a short row's missing cells "?"
+    by_col = list(itertools.zip_longest(*data_rows, fillvalue="?"))
+    cols = {}
+    for j, (name, kind, dom) in enumerate(zip(names, kinds, domains)):
+        raw = list(map(str.strip, by_col[j])) if j < len(by_col) \
+            else ["?"] * n
+        if kind == "numeric":
+            try:                # no NA cell: every cell a number
+                vals = np.array(list(map(float, raw)), dtype=np.float64)
+            except ValueError:
+                vals = np.array([np.nan if t in ("?", "") else float(t)
+                                 for t in raw], dtype=np.float64)
+            cols[name] = Vec.from_numpy(vals, device=device)
+        elif kind == "enum":
+            lut = {lvl: i for i, lvl in enumerate(dom)}
+            vals = np.array([np.nan if t in ("?", "") else
+                             lut.get(t.strip("'\""), np.nan) for t in raw],
+                            dtype=np.float32)
+            cols[name] = Vec.from_numpy(vals, type=T_CAT, domain=dom,
+                                        device=device)
+        else:
+            vals = np.array([None if t in ("?", "") else t.strip("'\"")
+                             for t in raw], dtype=object)
+            cols[name] = Vec(None, n, type=T_STR, host_data=vals)
+    _check_frame_size(n, len(names))
+    return Frame(list(cols), list(cols.values()), key=dest_key)
+
+
+_OTHER_PARSERS = {".avro": _parse_avro, ".xlsx": _parse_xlsx,
+                  ".xls": _parse_xls, ".svm": _parse_svmlight,
+                  ".svmlight": _parse_svmlight, ".arff": _parse_arff}
+
+
 def parse_file(path: str, setup: ParseSetup | None = None,
                dest_key: str | None = None, device=None) -> Frame:
-    """Parse one CSV/TSV file into a Frame on ``device`` (default
-    ``cuda``), the role of ``ParseDataset.parse``."""
+    """Parse one file into a Frame on ``device`` (default ``cuda``), the
+    role of ``ParseDataset.parse``: CSV/TSV by default, Avro, XLSX, XLS,
+    SVMLight and ARFF by their extension (which ignore ``setup``, as the
+    reference's readers do)."""
     failpoints.hit("parser.parse")
     _refuse_format(path)
     dev = resolve_device(device)
+    other = _OTHER_PARSERS.get(os.path.splitext(path)[1].lower())
+    if other is not None:
+        return STORE.put_keyed(other(path, dev, dest_key))
     setup = guess_setup(path, setup)
     cols = _tokenize(_read_bytes(path), setup.separator or ",")
     if setup.header:
@@ -539,7 +764,8 @@ def import_file(path: str, destination_frame: str | None = None,
                 na_strings: Sequence[str] | None = None,
                 device=None) -> Frame:
     """Public ingest entry — ``h2o.import_file`` (`h2o-py/h2o/h2o.py:323`):
-    a local CSV/TSV path, plain, ``.gz`` or ``.zip``."""
+    a local path, CSV/TSV (plain, ``.gz`` or ``.zip``), Avro, XLSX, XLS,
+    SVMLight or ARFF."""
     setup = ParseSetup(separator=sep, header=header, column_names=col_names,
                        column_types=col_types, na_strings=na_strings)
     return parse_file(path, setup, dest_key=destination_frame, device=device)

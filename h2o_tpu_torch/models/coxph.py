@@ -216,7 +216,8 @@ class CoxPHModel(Model):
         dev = resolve_device(device)
         f32 = np.float32
         model = CoxPHModel(
-            CoxPHParameters(stratify_by=list(ref.strata_cols or [])),
+            CoxPHParameters(stratify_by=list(ref.strata_cols or []),
+                            response_column=ref.params.response_column),
             ModelOutput.carried(ref.output),
             torch.from_numpy(np.array(ref.beta, f32)).to(dev),
             DataInfo.carried(ref.dinfo),

@@ -92,13 +92,14 @@ class StackedEnsembleModel(Model):
         """Carry a JAX-trained ensemble over: each base model and the
         metalearner through its own ``from_reference`` (the metalearner's
         column names are the reference's base-model keys, so the carried
-        base models keep those keys), plus the output's category and
+        base models keep those keys, and the metalearner keeps its own, as
+        the ensemble's MOJO names them all), plus the output's category and
         response domain. Given the same frame it scores what the reference
         scores."""
         resolve_device(device)
         bases = [carry_model(bm, device, key=bm.key)
                  for bm in ref.base_models]
-        meta = carry_model(ref.metalearner, device)
+        meta = carry_model(ref.metalearner, device, key=ref.metalearner.key)
         out = ModelOutput()
         out.model_category = ref.output.model_category
         if ref.output.response_domain is not None:
@@ -133,7 +134,8 @@ def carry_model(ref, device=None, key=None) -> Model:
             dataclasses.asdict(ref.cfg),
             category=ref.output.model_category,
             response_domain=ref.output.response_domain,
-            cat_nedges=ref.cat_nedges, device=device)
+            cat_nedges=ref.cat_nedges,
+            response_column=ref.params.response_column, device=device)
         m.output.training_metrics = ref.output.training_metrics
     elif kind == "StackedEnsembleModel":
         m = StackedEnsembleModel.from_reference(ref, device=device)

@@ -196,7 +196,8 @@ class GAMModel(Model):
         params = GAMParameters(
             family=ref.family.name, link=ref.family.link_name,
             gam_columns=[s["column"] for s in specs],
-            bs=[int(s.get("bs", 3)) for s in specs], **powers)
+            bs=[int(s.get("bs", 3)) for s in specs],
+            response_column=ref.params.response_column, **powers)
         dinfo = None if ref.dinfo is None else DataInfo.carried(ref.dinfo)
         model = GAMModel(params, ModelOutput.carried(ref.output), dinfo, specs,
                          np.asarray(ref.beta, np.float64).copy(), family)

@@ -141,7 +141,8 @@ class GBMModel(Model):
     @classmethod
     def from_reference(cls, forest, f0, edges, names, domains, cfg_fields, *,
                        category: str = "Binomial", response_domain=None,
-                       cat_nedges=None, device=None) -> "GBMModel":
+                       cat_nedges=None, response_column=None,
+                       device=None) -> "GBMModel":
         """Carry a JAX-trained tree model over: ``forest`` is the
         reference's forest dict (``feat, thr, nanL, val, gain, catd`` as
         numpy arrays in the ``gbm.py:_assemble_forest`` layout, (T, K, N) for
@@ -151,7 +152,8 @@ class GBMModel(Model):
         ``cfg_fields`` its TreeConfig fields (``drf_mode`` marks a DRF or
         XRT forest). The model's ``is_cat`` (the features with a domain) and
         ``cat_nedges`` (each edge row's cut count) follow from these as in
-        the reference's build. A reference model keeps no edges: with
+        the reference's build; ``response_column`` names the response (a
+        MOJO's last column). A reference model keeps no edges: with
         ``edges`` None, ``cat_nedges`` comes from the reference model's own
         (the model scores; a checkpoint continuation from it takes the raw
         replay). The port model scores the same rows as the reference
@@ -187,7 +189,8 @@ class GBMModel(Model):
                 {"Binomial": Bernoulli, "Regression": Gaussian,
                  "Multinomial": Multinomial}[category]())
         params = GBMParameters(ntrees=ft["feat"].shape[0],
-                               max_depth=cfg.max_depth)
+                               max_depth=cfg.max_depth,
+                               response_column=response_column)
         f0_t = torch.from_numpy(np.array(f0, np.float32)).to(dev)
         return cls(params, output, ft, f0_t, dist, cfg, is_cat, edges=edges,
                    cat_nedges=cat_nedges)
@@ -258,13 +261,18 @@ class GBMModel(Model):
         """The frame's (nrow, F) training-order matrix on its device."""
         return self.adapt_frame(fr)[: fr.nrow]
 
-    def _set_args_np(self):
-        """(catd, iscat, nedges) as numpy for the host-side recursion."""
-        if not self.cfg.use_sets:
-            return None, None, None
+    def set_split_arrays_np(self):
+        """(catd, iscat, nedges, cards) on the host for TreeSHAP's
+        recursion and the MOJO and POJO writers (reference ``gbm.py:188``),
+        all None without set splits; ``cards`` is each feature's domain
+        size (0 for a numeric one)."""
+        if not self.cfg.use_sets or "catd" not in self.forest:
+            return None, None, None, None
+        cards = np.array([len(self.output.domains.get(n) or [])
+                          for n in self.output.names], dtype=np.int64)
         return (self.forest["catd"].cpu().numpy(),
                 np.asarray(self.is_cat, np.bool_),
-                np.asarray(self.cat_nedges, np.int64))
+                np.asarray(self.cat_nedges, dtype=np.int64), cards)
 
     def predict_contributions(self, fr) -> Frame:
         """Per-feature SHAP contributions and ``BiasTerm``, on the link
@@ -280,7 +288,7 @@ class GBMModel(Model):
         self._ensure_covers()
         fo = {k: self.forest[k].cpu().numpy()
               for k in ("feat", "thr", "nanL", "val", "cover")}
-        catd, iscat, nedges = self._set_args_np()
+        catd, iscat, nedges, _ = self.set_split_arrays_np()
         scale = 1.0 / max(self.ntrees, 1) if self.cfg.drf_mode else 1.0
         phi = tree_shap(self._rows(fr), fo["feat"], fo["thr"], fo["nanL"],
                         fo["val"], fo["cover"], bias0=float(self.f0),

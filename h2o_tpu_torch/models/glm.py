@@ -949,7 +949,8 @@ class GLMModel(Model):
         params = GLMParameters(
             family=fam_name, link=fam.link_name, standardize=di.standardize,
             missing_values_handling=di.missing_values_handling,
-            HGLM=kind == "HGLMModel", **powers)
+            HGLM=kind == "HGLMModel",
+            response_column=ref.params.response_column, **powers)
         beta = np.asarray(ref.beta, np.float64).copy()
         if kind == "GLMOrdinalModel":
             model = GLMOrdinalModel(params, out, di, beta,

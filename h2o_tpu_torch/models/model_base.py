@@ -269,19 +269,21 @@ class Model(Keyed):
                     cols.setdefault(k, []).append(v)
         return TwoDimTable.from_dict("Scoring History", cols)
 
-    def save_mojo(self, path: str, *args, **kwargs):
-        """MOJO export (reference ``:265``): ROADMAP Queue 1 item 10."""
-        raise NotImplementedError(
-            f"{self.algo_name}: MOJO export is not ported yet (ROADMAP "
-            f"Queue 1 item 10)")
+    def save_mojo(self, path: str) -> str:
+        """MOJO export (`hex/ModelMojoWriter.java`, ``mojo/writer.py``):
+        the zip the reference writes for this model."""
+        from ..mojo.writer import export_mojo
 
-    download_mojo = save_mojo
+        return export_mojo(self, path)
 
-    def save_pojo(self, path: str, *args, **kwargs):
-        """POJO export (reference ``:272``): ROADMAP Queue 1 item 10."""
-        raise NotImplementedError(
-            f"{self.algo_name}: POJO export is not ported yet (ROADMAP "
-            f"Queue 1 item 10)")
+    download_mojo = save_mojo   # the h2o-py name
+
+    def save_pojo(self, path: str, class_name: str | None = None) -> str:
+        """Java source scorer (`hex/tree/TreeJCodeGen`, `toJavaPredict`;
+        ``mojo/pojo.py``) for tree and GLM models."""
+        from ..mojo.pojo import export_pojo
+
+        return export_pojo(self, path, class_name)
 
     download_pojo = save_pojo
 
@@ -423,7 +425,8 @@ class ModelBuilder:
         work."""
         self.job = Job(f"{self.algo_name} training", work=1.0)
         self.job.set_max_runtime(self.params.max_runtime_secs)
-        dev = self.params.training_frame.device
+        # a Generic model reads a MOJO, not a frame
+        dev = getattr(self.params.training_frame, "device", None)
 
         def run():
             t0 = time.perf_counter()

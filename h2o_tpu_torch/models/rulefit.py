@@ -317,7 +317,9 @@ class RuleFitModel(Model):
                  else tuple(list(s) for s in ref.lin_stats))
         glm = (None if ref.glm_model is None
                else GLMModel.from_reference(ref.glm_model, device))
-        params = RuleFitParameters(model_type=ref.params.model_type)
+        params = RuleFitParameters(
+            model_type=ref.params.model_type,
+            response_column=ref.params.response_column)
         model = RuleFitModel(params, ModelOutput.carried(ref.output), rules,
                              arrays, list(ref.lin_names), stats, glm)
         model.stream = bool(ref.stream)

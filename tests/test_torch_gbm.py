@@ -244,7 +244,11 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.modelselection, "
             "h2o_tpu_torch.utils.optim, h2o_tpu_torch.models.gam, "
             "h2o_tpu_torch.models.rulefit, h2o_tpu_torch.models.coxph, "
-            "h2o_tpu_torch.mojo.format; "
+            "h2o_tpu_torch.mojo.format, h2o_tpu_torch.mojo.reader, "
+            "h2o_tpu_torch.mojo.writer, h2o_tpu_torch.mojo.pojo, "
+            "h2o_tpu_torch.mojo.easy, h2o_tpu_torch.models.generic, "
+            "h2o_tpu_torch.io.avro, h2o_tpu_torch.io.xlsx, "
+            "h2o_tpu_torch.io.xls; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -283,14 +287,16 @@ def _automl_lbfgs(fr, _tmp):
               modeling_plan=plan).train(y="y", training_frame=fr)
 
 
+#: the model surface's exports, refused until the MOJO slice: the call
+_EXPORTS = {
+    "save_mojo": lambda m, d: m.save_mojo(str(d / "m")),
+    "download_mojo": lambda m, d: m.download_mojo(str(d / "m")),
+    "save_pojo": lambda m, d: m.save_pojo(str(d / "p")),
+    "download_pojo": lambda m, d: m.download_pojo(str(d / "p")),
+}
+
 #: what the model surface refuses: (ROADMAP Queue 1 item, the call)
 _REFUSALS = {
-    "save_mojo": (10, lambda fr, d: _one_tree(fr).save_mojo(str(d / "m"))),
-    "download_mojo": (10, lambda fr, d: _one_tree(fr).download_mojo(
-        str(d / "m"))),
-    "save_pojo": (10, lambda fr, d: _one_tree(fr).save_pojo(str(d / "p"))),
-    "download_pojo": (10, lambda fr, d: _one_tree(fr).download_pojo(
-        str(d / "p"))),
     "score_raw": (14, lambda fr, d: _one_tree(fr).score_raw(
         torch.zeros((4, 3)))),
     "python_udf": (13, lambda fr, d: GBM(GBMParameters(
@@ -319,8 +325,11 @@ def test_out_of_slice_options_raise(change, tmp_path):
     chunk codecs (``compress`` codes the columns and decodes them bit for
     bit) and checkpoints, GBM's and DART's, where a key the store does not
     hold raises the reference's ``ValueError`` (their parity is in
-    test_torch_recovery.py). The model surface's refusals name their
-    items: MOJO/POJO export, ``score_raw`` (serving), a custom metric
+    test_torch_recovery.py). MOJO and POJO export are taken: the file
+    written scores the model (MOJO: its ``predict`` within 1e-5; POJO:
+    one method a tree; their parity is in test_torch_mojo.py). The model
+    surface's refusals name their items: ``score_raw`` (serving), a custom
+    metric
     uploaded as a ``"python:"`` reference; a grid or an AutoML run that
     meets a refusal (GLM's ``feature_parallelism=2``) raises it."""
     if change == "goss":
@@ -340,6 +349,18 @@ def test_out_of_slice_options_raise(change, tmp_path):
         return
     cols, y = _data(n=2000, seed=5)
     fr = _port_frame(cols, y)
+    if isinstance(change, str) and change in _EXPORTS:
+        from h2o_tpu_torch import MojoModel
+
+        m = _one_tree(fr)
+        path = _EXPORTS[change](m, tmp_path)
+        if "mojo" in change:
+            got = MojoModel.load(path).predict(fr)[:, 2]
+            want = m.predict(fr).vec(2).to_numpy()
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+        else:
+            assert open(path).read().count("static double tree_") == 1
+        return
     if isinstance(change, str) and change in _REFUSALS:
         item, call = _REFUSALS[change]
         with pytest.raises(NotImplementedError,
