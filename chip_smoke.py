@@ -24,7 +24,11 @@ dispersion, interactions, HGLM, the ordinal family) with ANOVA GLM and
 ModelSelection over it; and the Gram's other users (GAM with all four
 spline bases, RuleFit over a streamed rule design, CoxPH); and models
 out, data in (MOJO and POJO export, the standalone MOJO scorer and
-Generic models; SVMLight, ARFF and XLSX import). In order:
+Generic models; SVMLight, ARFF and XLSX import); and the tree engine's
+other families (Uplift DRF at four histogram channels, DT on ``Exact``
+bins, both isolation forests, AdaBoost, Naive Bayes, quantiles, isotonic
+regression, the infogram, the target encoder and segment models). In
+order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
    plain PyTorch version at the HIGGS shapes (11,001,856 padded rows, 28
@@ -202,7 +206,7 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     airlines demos do, and requires the types, the 8 domain sizes, NA at
     exactly the blanked cells, every level (by name) and every float32
     value as generated; prints the write and parse walls, MB/s and rows/s;
-    then writes the generator's first 1,000,000 rows (``QUOTED_ROWS``, cut
+    then writes the generator's first 500,000 rows (``QUOTED_ROWS``, cut
     from the whole file) with the header and string levels quoted (R's
     ``write.csv``) and plain, parses both through the same call and
     requires the frames bit-equal, printing the quoted parse's wall and
@@ -243,7 +247,7 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     after each counted run the wrapper its plan took against the plain
     version on that model's own root-level inputs, with the checks and
     timings of ``level_hist_grouped``;
-17c. ``model_surface_card_vs_cpu``: 100,000 HIGGS rows and 100,000 rows
+17c. ``model_surface_card_vs_cpu``: 50,000 HIGGS rows and 50,000 rows
     of the airlines split on the card and on the CPU: covers, leaf ids and
     paths equal, contributions within 1e-5, staged predictions within
     1e-6; every encoding's state and columns bit for bit; the GBMs on the
@@ -264,7 +268,7 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     of mean square 1): no kernel launch (float64 cross products),
     ``varfix`` and ``varranef`` within 10% of those;
 17f. ``glm_rest_card_vs_cpu``: every option of the GLM's remainder at
-    100,000 rows on the card and on the CPU (p-values, L_BFGS, box and
+    50,000 rows on the card and on the CPU (p-values, L_BFGS, box and
     linear constraints, the alpha list, gamma and tweedie ``ml``
     dispersion, interactions, HGLM, the ordinal family, ANOVA,
     ModelSelection maxr and backward): coefficients within 1e-4 x max(1,
@@ -272,7 +276,7 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     terms (each LR statistic within 1e-6 of its reduced model's float32
     deviance, each p-value inside the band that puts on the CPU's) and
     ModelSelection subsets, HGLM's variances within 1e-5;
-18. ``import_cv_card_vs_cpu``: a 100,000-row CSV of the same generator
+18. ``import_cv_card_vs_cpu``: a 50,000-row CSV of the same generator
     through import, split, the CV GBM and the CV GLM on the card and on
     the CPU: the same frame bit for bit, equal folds and fold/main
     forests, leaves, holdout predictions, Platt (a, b) and GBM CV metrics
@@ -308,7 +312,7 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     (on an H100 the float32 one misses the float64 Gram by 3.1e-5 of an
     entry's mass there, the kernel by 1.8e-6; its distance is printed),
     with the timings of ``gram``;
-23. ``recovery_dl``: ``dl_mnist``'s model on the frame's first 20,000
+23. ``recovery_dl``: ``dl_mnist``'s model on the frame's first 10,000
     rows (``RECOVERY_DL_ROWS``, cut from 60,000) at 2 epochs (cut from 3)
     with
     ``auto_recovery_dir`` (a state write every epoch), killed at
@@ -344,11 +348,11 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     trees) and multinomial GLM under the AUTO metalearner: 21 level-one
     columns, class probabilities finite, rows summing to 1 within 1e-5;
 28. ``automl_card_vs_cpu``: a plan with every algo (DeepLearning and a
-    grid included) at 20,000 HIGGS rows with 2 folds (``AUTOML_CPU_FOLDS``,
+    grid included) at 10,000 HIGGS rows with 2 folds (``AUTOML_CPU_FOLDS``,
     cut from 3), card and CPU: the
     same steps and combos, metrics within 1e-4, every ensemble's
     metalearner coefficients within 1e-4 x max(1, |beta|) and its
-    predictions within 1e-4; the multinomial GLM on 20,000 covertype rows
+    predictions within 1e-4; the multinomial GLM on 10,000 covertype rows
     likewise;
 29. ``grid_recovery``: a 4-combo GBM grid on 100,000 HIGGS rows killed at
     its third manifest write and resumed: bit-equal to the uninterrupted
@@ -382,7 +386,62 @@ Generic models; SVMLight, ARFF and XLSX import). In order:
     the same rules, memberships, supports and lambda path, coefficients
     within 1e-4 x max(1, |beta|)) and CoxPH (coefficients within 1e-5 x
     max(1, |beta|), log-likelihood within a relative 1e-6, baseline
-    hazard within 1e-5).
+    hazard within 1e-5);
+34. ``families_higgs`` (after ``rulefit_higgs``): AdaBoost at its
+    defaults (50 DRF learners of depth 2, ``mtries`` 1, each re-binning
+    its weighted frame) on the first 2M HIGGS rows: 2 flat launches per
+    learner, AUC above 0.5; Naive Bayes on all 11M rows (AUC above 0.5,
+    logloss below the constant model's); ``QuantileBuilder`` at its
+    default probabilities on every column (each quantile between the
+    order statistics around its exact rank, sorted, finite; its distance
+    from ``torch.quantile`` printed); isotonic regression of the response
+    on f0 on 1M rows (MSE below the constant's, fit non-decreasing); the
+    core infogram over GBM probes (10 trees) on 250,000 rows: 29 probes x
+    50 flat launches, CMI and relevance in [0, 1];
+35. ``uplift_criteo``: a generated frame of the Criteo Uplift Prediction
+    Dataset v2.1's shape (``_criteo_cols``: 13,979,592 rows, 12 float32
+    features, 85% treated, visits at 4.70%, an effect that varies with f3
+    and f4); ``UpliftDRF`` at the JAX package's defaults (KL, nbins 20,
+    depth 12, sample rate 0.632, mtries 3) with 10 trees (cut from 50),
+    seed 42: 10 x 12 launches of the plan's wrapper at V = 4, no Gram
+    launch, finite predictions, qini above a random ordering's, the ATE
+    within 0.003 of the generator's; then the kernel at V = 4 against its
+    plain version on the frame's codes and the first tree's bag at n_lv =
+    1, 64 and 2,048 (all four channels exact, two launches bit-identical;
+    the timings of ``level_hist_grouped``), and the MOJO on the first 1M
+    rows through the port's reader, within 1e-5 of ``predict``;
+36. ``isofor_creditcard``: a generated frame of the ULB credit-card fraud
+    data set's shape (``_creditcard_cols``: 284,807 rows, 30 float32
+    features, 492 planted anomalies); ``IsolationForest`` at its defaults
+    (50 trees, 256-row samples, drawn by ``randint`` at this row count)
+    and ``ExtendedIsolationForest`` at extension level 29: every row
+    scored on the card, the AUC of the score against the planted label
+    above 0.5, each MOJO on the first 20,000 rows within 1e-6, no kernel
+    launch;
+37. ``dt_covtype`` (after ``recovery_drf``): ``DT`` at its defaults on
+    the covertype frame (one tree a class, depth 5, ``Exact`` bins for
+    columns of at most 2,048 distinct values): 7 x 5 launches of the
+    plan's wrapper, training logloss below the class prior's; then the
+    kernel against its plain version at the root level of the model's own
+    ``Exact`` plan and codes, the weight channel exact;
+38. ``families_card_vs_cpu`` (after ``drf_card_vs_cpu``): every new
+    builder at about 50,000 rows on the card and on the CPU (uplift with
+    3 trees, DT at 30,000 rows, both isolation forests at 120,000 rows
+    with 10 trees, AdaBoost with 5
+    learners, Naive Bayes, quantiles, isotonic, a 6-feature infogram, the
+    KFold target encoder, segment GBMs per carrier): tree structure,
+    thresholds, split flags, subsample counts, leaf rates, bin edges,
+    count tables and quantiles equal; gains, probabilities, alphas, CMI
+    and encodings within 1e-6;
+39. ``encoders_airlines`` (after ``compress_airlines``, on the imported
+    7,009,728-row airlines frame): the target encoder on Origin, Dest and
+    UniqueCarrier, KFold over a 5-fold column, blending, noise 0.01
+    (encodings finite, within [-0.02, 1.02]); a 5-tree GBM on the encoded
+    numerics (25 flat launches, AUC above 0.6); segment models of 5-tree
+    GBMs, one per UniqueCarrier (22), at ``parallelism`` 1 and 2: every
+    segment succeeded, 22 x 25 launches each, the two runs' forests
+    bit-equal; the encoder's MOJO on the first 1M rows within 1e-6 of
+    its transform.
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, SVMLight, ARFF and XLSX
@@ -398,7 +457,10 @@ interaction design, at ModelSelection's [X | 1 | y], at GAM's design, at
 a streamed RuleFit block and at a CoxPH Newton pass; the flat entry
 carries GBM def_5's deep levels; each histogram entry the encoded
 airlines models' root levels that took its wrapper; ``mojo_export``'s
-and ``import_formats``' trainings under ``launches_by_path``), and last
+and ``import_formats``' trainings under ``launches_by_path``, as the new
+families' are; the uplift path's V = 4 levels under ``uplift_v4_levels``
+and DT's root level under ``dt_exact_root``, in the entry of the wrapper
+each plan took), and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line; so does a machine without a CUDA GPU. Imports nothing of JAX or of ``h2o_tpu``.
 """
@@ -433,12 +495,14 @@ OPTIONS_ROWS = 50_000          # gbm_options_card_vs_cpu: HIGGS rows (cut
 XGB_CPU_ROWS = 250_000         # xgboost_card_vs_cpu: HIGGS rows (cut
                                # from 1M for the clock)
 IMPORT_ROWS = 7_009_728        # the ASA Data Expo 2009 on-time file for 2008
-IMPORT_CPU_ROWS = 100_000      # import_cv_card_vs_cpu
+IMPORT_CPU_ROWS = 50_000       # import_cv_card_vs_cpu (cut from 100,000 for
+                               # the clock when the tree families came)
 SLICE_ROWS = 100_000           # checkpoint_higgs: rows a fresh process scores
 CARD_CPU_ROWS = 250_000        # card_vs_cpu: HIGGS rows (cut from 1M for
                                # the clock; the CPU side took ~46 s)
-QUOTED_ROWS = 1_000_000        # import_csv: the quoted twin's rows (cut
-                               # from the full 7,009,728 for the clock)
+QUOTED_ROWS = 500_000          # import_csv: the quoted twin's rows (cut
+                               # from the full 7,009,728 for the clock;
+                               # 1,000,000 until the tree families came)
 RECOVERY_ROWS = 250_000        # recovery_card_vs_cpu: HIGGS rows (cut
                                # from 1M for the clock)
 RECOVERY_DRF_TREES = 30        # recovery_drf: drf_train's 50 trees cut to 30
@@ -451,8 +515,9 @@ MNIST_ROWS = 60_000            # MNIST's training set
 MNIST_BORDER = 67              # pixels 0 in every row of MNIST's training set
 MNIST_CPU_ROWS = 2_000         # unsupervised_card_vs_cpu
 RECOVERY_DL_EPOCHS = 2.0       # recovery_dl: cut from 3 epochs (PR 12)
-RECOVERY_DL_ROWS = 20_000      # recovery_dl: the frame's first rows (cut
-                               # from 60,000 for the clock)
+RECOVERY_DL_ROWS = 10_000      # recovery_dl: the frame's first rows (cut
+                               # from 60,000 for the clock; 20,000 until
+                               # the tree families came)
 AUTOML_ROWS = 250_000          # automl_higgs: HIGGS rows (cut from 11M)
 AUTOML_FOLDS = 2               # automl_higgs: CV folds (cut from 5: 78 fits
                                # took 208-226 s on an H100 at 700 W, and
@@ -467,7 +532,8 @@ AUTOML_MAX_MODELS = 10         # automl_higgs: cut from 13 for the clock
 ENSEMBLE_FOLDS = 2             # ensemble_covtype: CV folds (cut from 3
                                # for the clock when the MOJO/formats
                                # phases came)
-AUTOML_CPU_ROWS = 20_000       # automl_card_vs_cpu: HIGGS and covertype rows
+AUTOML_CPU_ROWS = 10_000       # automl_card_vs_cpu: HIGGS and covertype rows
+                               # (20,000 until the tree families came)
 AUTOML_CPU_FOLDS = 2           # automl_card_vs_cpu: CV folds (3 until
                                # the GAM/RuleFit/CoxPH slice, cut for the
                                # clock)
@@ -1106,10 +1172,12 @@ def _airlines_plan_inputs(dev, rl: int, widths, B: int, n_lv: int, g):
 
 
 def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
-                   reps: int, flat: bool = False) -> dict:
+                   reps: int, flat: bool = False, exact_ch: int = 1) -> dict:
     """One grouped level: kernel vs plain checks and the four timings.
     ``flat`` takes the flat wrapper instead, ``groups`` then being its one
-    bucket of every feature at width ``B``.
+    bucket of every feature at width ``B``. The first ``exact_ch`` channels
+    are integer-valued and must equal the plain version bit for bit (all
+    four of uplift's); the rest are held within ``REAL_TOL`` of the mass.
 
     The integer channel is held against the exact per-cell count (int64
     ``index_add_``, rounded once to float32) and against the plain version,
@@ -1161,9 +1229,14 @@ def _grouped_level(dev, codes, lc, vv, groups, n_lv: int, B: int,
     for (idxs, Bg, _m), a, b, p, m in zip(groups, k1, k2, plain, mass):
         _check(torch.equal(a, b), f"grouped n_lv={n_lv} Bg={Bg}: two "
                                   f"launches differ")
+        _check(torch.equal(a[..., :exact_ch], p[..., :exact_ch]),
+               f"grouped n_lv={n_lv} Bg={Bg}: an integer channel differs "
+               f"from the plain version")
         d = (a - p).abs()
         err = max(err, float(d.max()))
-        rel = max(rel, float((d[..., 1:] / (m[..., 1:] + 1e-30)).max()))
+        if exact_ch < V:
+            rel = max(rel, float((d[..., exact_ch:]
+                                  / (m[..., exact_ch:] + 1e-30)).max()))
     _check(rel <= REAL_TOL, f"grouped n_lv={n_lv}: real channels off by "
                             f"{rel:.3g} of the cell mass (limit {REAL_TOL})")
     del plain, mass, exact
@@ -2315,7 +2388,7 @@ def phase_import_cv_glm(dev, train, valid) -> tuple[int, dict]:
 
 
 def phase_import_cv_card_vs_cpu(dev) -> None:
-    """A 100,000-row CSV of the same generator through the whole path on
+    """A 50,000-row CSV of the same generator through the whole path on
     the card and on the CPU: the same frame, folds, forests, Platt
     coefficients, coefficients and CV metrics."""
     import torch
@@ -3730,7 +3803,8 @@ def phase_grid_recovery(dev) -> int:
 #    categorical encodings) ---------------------------------------------------
 SHAP_SUB_ROWS = 1_000_000      # shap_higgs: rows of the leaf and staged checks
 ONEHOT_ROWS = 1_000_000        # encoding_airlines: OneHotExplicit's rows
-SURFACE_CPU_ROWS = 100_000     # model_surface_card_vs_cpu: rows per frame
+SURFACE_CPU_ROWS = 50_000      # model_surface_card_vs_cpu: rows per frame
+                               # (100,000 until the tree families came)
 ENCODINGS = ("EnumLimited", "SortByResponse", "Eigen", "OneHotExplicit")
 
 
@@ -3999,9 +4073,9 @@ def _cpu_frame(fr):
 
 
 def phase_model_surface_card_vs_cpu(dev, air) -> dict:
-    """The model surface on the card and on the CPU: 100,000 HIGGS rows
+    """The model surface on the card and on the CPU: 50,000 HIGGS rows
     (covers, leaf ids and paths, contributions, staged predictions of one
-    GBM) and 100,000 rows of the airlines split (each encoding's columns;
+    GBM) and 50,000 rows of the airlines split (each encoding's columns;
     GBMs on three encoded frames); a GLM grid with a feature-parallel combo
     raises on the card too. Returns the card's histogram launches."""
     import torch
@@ -4091,7 +4165,8 @@ def phase_model_surface_card_vs_cpu(dev, air) -> dict:
 # the rest of GLM: p-values, L_BFGS, constraints, alpha lists, interactions,
 # HGLM, the ordinal family, ANOVA GLM and ModelSelection
 # ---------------------------------------------------------------------------
-GLM_REST_ROWS = 100_000        # glm_rest_card_vs_cpu: rows per frame
+GLM_REST_ROWS = 50_000         # glm_rest_card_vs_cpu: rows per frame
+                               # (100,000 until the tree families came)
 ANOVA_ROWS = 2_000_000         # anova_modelselection_higgs: ANOVA's rows
 BACKWARD_ROWS = 1_000_000      # anova_modelselection_higgs: backward's rows
 INTERACTION_PAIRS = [("UniqueCarrier", "Month"),
@@ -4571,7 +4646,7 @@ def _rel(a, b) -> float:
 
 
 def phase_glm_rest_card_vs_cpu(dev, air) -> int:
-    """Every option of this slice at 100,000 rows on the card and on the
+    """Every option of this slice at 50,000 rows on the card and on the
     CPU: coefficients within 1e-4 x max(1, |beta|) (IRLSM with p-values,
     L_BFGS, box and linear constraints, the alpha list, gamma and tweedie
     with ``ml`` dispersion, interactions, the ordinal family); std errors
@@ -5261,6 +5336,750 @@ def phase_gam_rulefit_coxph_card_vs_cpu(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The tree engine's other families: uplift, DT, isolation forests, AdaBoost,
+# Naive Bayes, quantiles, isotonic regression, infogram, target encoding and
+# segment models.
+# ---------------------------------------------------------------------------
+CRITEO_ROWS = 13_979_592       # Criteo Uplift Prediction Dataset v2.1
+CRITEO_F = 12                  # its float features f0..f11
+CRITEO_TREATED = 0.85          # its treatment share
+CRITEO_VISIT = 0.0470          # its overall visit rate
+UPLIFT_TREES = 10              # uplift_criteo: cut from the defaults' 50
+UPLIFT_ATE_TOL = 0.003         # |model ATE - generator's ATE|
+UPLIFT_MOJO_ROWS = 1_000_000   # uplift_criteo: the rows the MOJO scores
+CREDITCARD_ROWS = 284_807      # the ULB credit-card fraud data set
+CREDITCARD_F = 30              # Time, V1..V28, Amount
+CREDITCARD_FRAUD = 492         # its frauds, planted here as anomalies
+ISOFOR_MOJO_ROWS = 20_000      # isofor_creditcard: the rows each MOJO scores
+                               # (the host scorer walks ~15-20k rows/s)
+ADABOOST_ROWS = 2_000_000      # families_higgs: AdaBoost's rows
+ISOTONIC_ROWS = 1_000_000      # families_higgs: isotonic's rows
+INFOGRAM_ROWS = 250_000        # families_higgs: the infogram's rows
+TE_FOLDS = 5                   # encoders_airlines: the KFold column
+TE_MOJO_ROWS = 1_000_000       # encoders_airlines: the rows the MOJO scores
+FAMILIES_CPU_ROWS = 50_000     # families_card_vs_cpu: rows per frame
+ISOFOR_CPU_ROWS = 120_000      # families_card_vs_cpu: the isolation
+                               # forests' rows (past 100,000: randint)
+ISOFOR_CPU_TREES = 10          # families_card_vs_cpu: cut from 50 (the CPU
+                               # scores the extended forest in 13.4 s at 50)
+DT_CPU_ROWS = 30_000           # families_card_vs_cpu: DT's covertype rows
+                               # (cut from 100,000: 8.8 s on the CPU)
+FAMILIES_TOL = 1e-6            # families_card_vs_cpu: float results
+
+
+def _criteo_cols(nrow: int, seed: int = 2018):
+    """A frame of the Criteo Uplift Prediction Dataset v2.1's published
+    shape (Diemert et al., AdKDD 2018): 12 float32 features, treatment on
+    85% of rows, a binary visit at 4.70% overall. The visit's logit is
+    linear in f0-f2 and the treatment adds 0.8 where f3 > 0 plus 0.4 f4,
+    so the effect varies with the features; the intercept is solved on
+    the first 1M rows for the published rate. Returns (features, treatment,
+    visit, the generator's average treatment effect)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((nrow, CRITEO_F), dtype=np.float32)
+    treat = (rng.random(nrow, dtype=np.float32) < CRITEO_TREATED).astype(
+        np.float32)
+    lin = 0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3 * X[:, 2]
+    tau = 0.8 * (X[:, 3] > 0) + 0.4 * X[:, 4]
+    m = min(nrow, 1_000_000)
+    a = -3.5
+    for _ in range(8):     # Newton on the mean visit rate
+        p = 1 / (1 + np.exp(-(a + lin[:m] + treat[:m] * tau[:m])))
+        a -= (p.mean() - CRITEO_VISIT) / (p * (1 - p)).mean()
+    p_c = 1 / (1 + np.exp(-(a + lin)))
+    p_t = 1 / (1 + np.exp(-(a + lin + tau)))
+    y = (rng.random(nrow) < np.where(treat > 0, p_t, p_c)).astype(np.float32)
+    return X, treat, y, float(np.mean(p_t - p_c))
+
+
+def _criteo_frame(nrow: int, device):
+    from h2o_tpu_torch import Frame, Vec
+    from h2o_tpu_torch.frame.vec import T_CAT
+
+    X, treat, y, ate = _criteo_cols(nrow)
+    fr = Frame.from_dict({f"f{j}": X[:, j] for j in range(CRITEO_F)},
+                         device=device)
+    fr.add("treatment", Vec.from_numpy(treat, type=T_CAT, device=device,
+                                       domain=["control", "treatment"]))
+    fr.add("visit", Vec.from_numpy(y, type=T_CAT, domain=["0", "1"],
+                                   device=device))
+    return fr, ate
+
+
+def _uplift(fr, ntrees: int):
+    """The JAX package's UpliftDRF defaults (KL, nbins 20, max_depth 20
+    capped to 12, sample_rate 0.632, mtries -1 -> 3), seed 42."""
+    from h2o_tpu_torch import UpliftDRF, UpliftDRFParameters
+
+    return UpliftDRF(UpliftDRFParameters(
+        training_frame=fr, response_column="visit",
+        treatment_column="treatment", ntrees=ntrees, seed=42)).train_model()
+
+
+def _mojo_scores(model, fr, what: str, atol: float, cols=None) -> dict:
+    """``model``'s MOJO scored by the port's standalone reader on ``fr``'s
+    rows, against ``model.predict`` (``cols``: the prediction columns the
+    scorer's columns line up with; all by default): within ``atol``."""
+    import torch
+
+    from h2o_tpu_torch import MojoModel
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, f"{what}.zip")
+    t0 = time.perf_counter()
+    model.save_mojo(path)
+    export_s = time.perf_counter() - t0
+    scorer = MojoModel.load(path)
+    t0 = time.perf_counter()
+    got = np.asarray(scorer.score(scorer.feature_frame_matrix(fr)))
+    score_s = time.perf_counter() - t0
+    pred = model.predict(fr)
+    names = cols or pred.names
+    want = torch.stack([pred.vec(n).data[:fr.nrow] for n in names],
+                       dim=1).double().cpu().numpy()
+    got = got.reshape(fr.nrow, -1)[:, :want.shape[1]]
+    err = float(np.abs(got - want).max())
+    _check(bool(np.isfinite(got).all()), f"{what}: MOJO scores not finite")
+    _check(err <= atol, f"{what}: MOJO scores off predict by {err} (atol "
+                        f"{atol})")
+    out = dict(rows=fr.nrow, mojo_bytes=os.path.getsize(path),
+               export_s=export_s, score_s=score_s, max_abs_err=err,
+               scorer_rows_per_s=fr.nrow / score_s)
+    os.remove(path)
+    return out
+
+
+def _uplift_level(dev, codes, vv, plan, flat: bool, B: int,
+                  n_lv: int, g) -> dict:
+    """One V = 4 level of the kernel on the uplift frame's own codes and
+    channels (node ids drawn uniformly over the level's nodes)."""
+    import torch
+
+    lc = torch.randint(0, n_lv, (codes.shape[0],), generator=g, device=dev,
+                       dtype=torch.int32)
+    row = _grouped_level(dev, codes, lc, vv, plan, n_lv, B, 10, flat=flat,
+                         exact_ch=4)
+    row["wrapper"] = "flat" if flat else "grouped"
+    return row
+
+
+def phase_uplift_criteo(dev, fr, ate_gen: float) -> dict:
+    """UpliftDRF end to end on the Criteo-shaped frame: 10 x 12 launches of
+    the plan's wrapper at V = 4, no Gram launch, finite predictions, qini
+    above a random ordering's, the ATE near the generator's; then the
+    kernel at V = 4 against its plain version on the frame's codes and the
+    first tree's channels at n_lv 1, 64 and 2,048, and the MOJO on the
+    first 1M rows."""
+    import torch
+
+    from h2o_tpu_torch.frame.chunks import BinnedView
+    from h2o_tpu_torch.models.tree.binning import compute_bin_edges
+    from h2o_tpu_torch.models.uplift import make_uplift_metrics
+    from h2o_tpu_torch.utils import threefry
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _uplift(fr, UPLIFT_TREES)
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    flat = model.cfg.hist_groups is None
+    wrapper = "flat" if flat else "grouped"
+    other = counts["grouped" if flat else "flat"]
+    depth = model.cfg.max_depth
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    raw = torch.stack([pred.vec(j).data[:fr.nrow] for j in range(3)], 1)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    m = model.output.training_metrics
+    y = fr.vec("visit").to_numpy()
+    t = fr.vec("treatment").to_numpy()
+    rand = make_uplift_metrics(y, t, np.random.default_rng(7).random(
+        fr.nrow), model.params.auuc_nbins, "qini")
+    out = dict(rows=fr.nrow, ntrees=UPLIFT_TREES, max_depth=depth,
+               mtries=model.cfg.mtries, nbins=model.cfg.nbins,
+               wrapper=wrapper, launches=counts[wrapper],
+               other_launches=other, gram_launches=counts["gram"],
+               train_s=train_s, predict_s=predict_s, qini=m.qini,
+               random_qini=rand.qini, auuc=m.auuc,
+               auuc_normalized=m.auuc_normalized, ate=m.ate, att=m.att,
+               atc=m.atc, generator_ate=ate_gen,
+               visit_rate=float(np.mean(y)), treated=float(np.mean(t)),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    _check(counts[wrapper] == UPLIFT_TREES * 12 and depth == 12,
+           f"uplift_criteo: {counts[wrapper]} launches of the {wrapper} "
+           f"wrapper, want {UPLIFT_TREES} x 12")
+    _check(other == 0 and counts["gram"] == 0,
+           f"uplift_criteo: {other} launches of the other wrapper, "
+           f"{counts['gram']} Gram launches")
+    _check(bool(torch.isfinite(raw).all()),
+           "uplift_criteo: predictions not finite")
+    _check(m.qini > rand.qini, f"uplift_criteo: qini {m.qini} not above a "
+                               f"random ordering's {rand.qini}")
+    _check(abs(m.ate - ate_gen) <= UPLIFT_ATE_TOL,
+           f"uplift_criteo: ATE {m.ate} off the generator's {ate_gen} by "
+           f"more than {UPLIFT_ATE_TOL}")
+    # the kernel at V = 4 on this frame's codes and the first tree's bag
+    names = [f"f{j}" for j in range(CRITEO_F)]
+    edges = compute_bin_edges(fr.as_matrix(names), np.zeros(CRITEO_F, bool),
+                              20, seed=42, nbins_cats=20)
+    codes = BinnedView.build([fr.vec(n) for n in names], edges,
+                             names=names).matrix
+    B = edges.shape[1] + 2
+    plan = (((tuple(range(CRITEO_F)), B, "onehot"),) if flat
+            else model.cfg.hist_groups)
+    key = threefry.split(threefry.prng_key(42), UPLIFT_TREES)[0]
+    rl = codes.shape[0]
+    s = (threefry.uniform(threefry.fold_in(key, 0), (rl,), dev)
+         < np.float32(model.cfg.sample_rate)).to(torch.float32)
+    s = s * (~torch.isnan(fr.vec("visit").data)).to(torch.float32)
+    tr = torch.nan_to_num(fr.vec("treatment").data)
+    yv = torch.nan_to_num(fr.vec("visit").data)
+    vv = torch.stack([s * tr, s * tr * yv, s * (1 - tr), s * (1 - tr) * yv],
+                     dim=1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for n_lv in (1, 64, 2048):
+        row = _uplift_level(dev, codes, vv, plan, flat, B, n_lv, g)
+        print("level_hist_uplift", json.dumps(row), flush=True)
+        rows.append(row)
+    del codes, vv
+    torch.cuda.empty_cache()
+    mojo = _mojo_scores(model, fr.take(np.arange(UPLIFT_MOJO_ROWS)),
+                        "uplift_criteo", CPU_TOL)
+    out["mojo"] = mojo
+    print("uplift_criteo", json.dumps(out), flush=True)
+    return dict(wrapper=wrapper, launches=counts[wrapper], per_level=rows)
+
+
+def phase_dt_covtype(dev, fr) -> dict:
+    """DT at its defaults (one tree per class, depth 5, ``Exact`` bins up
+    to 2,048 distinct values) on the covertype frame: 7 x 5 launches of
+    the plan's wrapper, a training logloss below the class prior's; then
+    the kernel against its plain version at the root level of the model's
+    own ``Exact`` plan and codes, the weight channel exact."""
+    import torch
+
+    from h2o_tpu_torch import DT, DTParameters
+    from h2o_tpu_torch.frame.chunks import BinnedView
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = DT(DTParameters(training_frame=fr,
+                            response_column="Cover_Type")).train_model()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    cfg = model.cfg
+    wrapper = "grouped" if cfg.hist_groups else "flat"
+    other = counts["flat" if cfg.hist_groups else "grouped"]
+    K = len(COVTYPE_COUNTS)
+    pri = np.asarray(COVTYPE_COUNTS) / COVTYPE_ROWS
+    prior_logloss = float(-(pri * np.log(pri)).sum())
+    m = model.output.training_metrics
+    widths = ([w for _i, w, _m in cfg.hist_groups] if cfg.hist_groups
+              else [cfg.nbins + 1])
+    out = dict(rows=fr.nrow, classes=K, max_depth=cfg.max_depth,
+               nbins=cfg.nbins, bucket_widths=sorted(widths),
+               wrapper=wrapper, launches=counts[wrapper],
+               other_launches=other, gram_launches=counts["gram"],
+               train_s=train_s, logloss=m.logloss,
+               prior_logloss=prior_logloss,
+               mean_per_class_error=m.mean_per_class_error)
+    _check(counts[wrapper] == K * cfg.max_depth and other == 0
+           and counts["gram"] == 0,
+           f"dt_covtype: launches {counts}, want {K} x {cfg.max_depth} of "
+           f"the {wrapper} wrapper")
+    _check(bool(np.isfinite(m.logloss)) and m.logloss < prior_logloss,
+           f"dt_covtype: training logloss {m.logloss} not below the "
+           f"prior's {prior_logloss}")
+    names = model.output.names
+    codes = BinnedView.build([fr.vec(n) for n in names], model.edges,
+                             names=names).matrix
+    B = cfg.nbins + 1
+    plan = (cfg.hist_groups if cfg.hist_groups
+            else (((tuple(range(len(names))), B, "onehot"),)))
+    g = torch.Generator(device=dev).manual_seed(55)
+    rl = codes.shape[0]
+    lc = torch.zeros((rl,), dtype=torch.int32, device=dev)
+    vv = torch.randn((rl, 3), generator=g, device=dev)
+    vv[:, 0] = (torch.arange(rl, device=dev) < fr.nrow).to(torch.float32)
+    row = _grouped_level(dev, codes, lc, vv, plan, 1, B, 10,
+                         flat=not cfg.hist_groups)
+    row["wrapper"] = wrapper
+    out["root_level"] = row
+    print("dt_covtype", json.dumps(out), flush=True)
+    return dict(wrapper=wrapper, launches=counts[wrapper], root_level=row)
+
+
+def _creditcard_cols(nrow: int = CREDITCARD_ROWS, seed: int = 2013):
+    """A frame of the ULB credit-card fraud data set's shape: 30 float32
+    features (Time as a ramp over the two days in days, 28 unit-normal
+    components, Amount log-normal around 1, in hundreds) and 492 planted
+    anomalies (every 578th row), each shifted by 4 standard deviations in 8
+    of the components. The columns share one scale, so the extended
+    forest's hyperplanes are not all Time. Returns the features and the
+    planted label."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((nrow, CREDITCARD_F), dtype=np.float32)
+    X[:, 0] = np.linspace(0, 2, nrow, dtype=np.float32)
+    X[:, -1] = np.exp(rng.normal(0.0, 0.5, nrow)).astype(np.float32)
+    fraud = np.zeros(nrow, np.float32)
+    idx = np.arange(CREDITCARD_FRAUD) * (nrow // CREDITCARD_FRAUD)
+    fraud[idx] = 1.0
+    for i in idx:
+        cols = 1 + rng.choice(28, 8, replace=False)
+        X[i, cols] += np.float32(4.0) * np.sign(rng.standard_normal(8))
+    return X, fraud
+
+
+def _creditcard_frame(nrow: int, device):
+    from h2o_tpu_torch import Frame
+
+    X, fraud = _creditcard_cols(nrow)
+    names = ["Time"] + [f"V{j}" for j in range(1, 29)] + ["Amount"]
+    return Frame.from_dict({n: X[:, j] for j, n in enumerate(names)},
+                           device=device), fraud
+
+
+def _isofor(fr, extended: bool, ntrees: int = 50):
+    """Isolation Forest at its defaults (50 trees, 256-row samples), or the
+    extended form at extension level 29 (every component), seed 42."""
+    from h2o_tpu_torch import (ExtendedIsolationForest, IsolationForest,
+                               IsolationForestParameters)
+
+    if extended:
+        return ExtendedIsolationForest(IsolationForestParameters(
+            training_frame=fr, ntrees=ntrees,
+            extension_level=CREDITCARD_F - 1, seed=42)).train_model()
+    return IsolationForest(IsolationForestParameters(
+        training_frame=fr, ntrees=ntrees, seed=42)).train_model()
+
+
+def phase_isofor_creditcard(dev, fr, fraud) -> dict:
+    """Isolation Forest (50 trees, 256-row samples: ``randint`` at this
+    row count) and the extended form at extension level 29 on the
+    credit-card-shaped frame: every row scored on the card, the AUC of the
+    score against the planted label above 0.5, each MOJO round-tripped
+    through the port's reader within 1e-6, no kernel launch."""
+    import torch
+
+    from h2o_tpu_torch.models.metrics import make_binomial_metrics
+
+    out = {}
+    _reset_counts()
+    lab = torch.from_numpy(fraud).to(dev)
+    for what, ext in (("isofor", False), ("eif", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = _isofor(fr, ext)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        score = model.predict(fr).vec(0).data[:fr.nrow]
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        _check(bool(torch.isfinite(score).all()),
+               f"isofor_creditcard {what}: scores not finite")
+        auc = make_binomial_metrics(lab, score).auc
+        _check(auc > 0.5, f"isofor_creditcard {what}: AUC {auc}")
+        mojo = _mojo_scores(model, fr.take(np.arange(ISOFOR_MOJO_ROWS)),
+                            f"isofor_{what}", 1e-6, cols=["predict"])
+        out[what] = dict(train_s=train_s, score_s=score_s, auc=auc,
+                         depth=model.depth, sample_size=model.sample_size,
+                         mean_length=model.output.training_metrics
+                         .mean_length, mojo=mojo)
+    counts = _counts()
+    _check(sum(counts.values()) == 0,
+           f"isofor_creditcard: kernel launches {counts}")
+    out["rows"] = fr.nrow
+    print("isofor_creditcard", json.dumps(out), flush=True)
+    return out
+
+
+def phase_families_higgs(dev, higgs) -> dict:
+    """On the HIGGS frame: AdaBoost at its defaults (50 DRF learners of
+    depth 2) on 2M rows, 2 flat launches per learner; Naive Bayes and
+    ``QuantileBuilder`` on all 11M rows; isotonic regression of the
+    response on f0 on 1M rows; the core infogram with GBM probes (10 trees)
+    on 250,000 rows, 29 probes x 50 launches. Returns the flat launches."""
+    import torch
+
+    from h2o_tpu_torch import (AdaBoost, AdaBoostParameters, Frame,
+                               Infogram, InfogramParameters,
+                               IsotonicParameters, IsotonicRegression,
+                               NaiveBayes, NaiveBayesParameters,
+                               QuantileBuilder, QuantileParameters, Vec)
+
+    out, launches = {}, 0
+    y11 = higgs.vec("response").data[:higgs.nrow]
+    prior = float(y11.double().mean())
+    const_ll = -(prior * np.log(prior) + (1 - prior) * np.log(1 - prior))
+    # AdaBoost
+    ada_fr = higgs.take(np.arange(ADABOOST_ROWS))
+    _reset_counts()
+    t0 = time.perf_counter()
+    ada = AdaBoost(AdaBoostParameters(training_frame=ada_fr,
+                                      response_column="response",
+                                      seed=42)).train_model()
+    c = _counts()
+    m = ada.output.training_metrics
+    out["adaboost"] = dict(rows=ADABOOST_ROWS, learners=len(ada.learners),
+                           train_s=time.perf_counter() - t0, auc=m.auc,
+                           launches=c)
+    _check(c["flat"] == 2 * len(ada.learners) and c["grouped"] == 0
+           and c["gram"] == 0, f"adaboost: launches {c}, want 2 a learner "
+                               f"of {len(ada.learners)}")
+    _check(len(ada.learners) >= 1 and m.auc > 0.5,
+           f"adaboost: {len(ada.learners)} learners, AUC {m.auc}")
+    launches += c["flat"]
+    del ada, ada_fr
+    # Naive Bayes on every row
+    _reset_counts()
+    t0 = time.perf_counter()
+    nb = NaiveBayes(NaiveBayesParameters(training_frame=higgs,
+                                         response_column="response")
+                    ).train_model()
+    m = nb.output.training_metrics
+    out["naivebayes"] = dict(rows=higgs.nrow, train_s=time.perf_counter() - t0,
+                             auc=m.auc, logloss=m.logloss,
+                             constant_logloss=const_ll)
+    _check(sum(_counts().values()) == 0, "naivebayes: kernel launches")
+    _check(m.auc > 0.5 and m.logloss < const_ll,
+           f"naivebayes: AUC {m.auc}, logloss {m.logloss} (constant "
+           f"{const_ll})")
+    del nb
+    # quantiles of every column: each between the order statistics around
+    # its exact rank; their distance from torch.quantile is printed
+    t0 = time.perf_counter()
+    q = QuantileBuilder(QuantileParameters(training_frame=higgs)).train_model()
+    qs = time.perf_counter() - t0
+    probs = torch.tensor(q.params.probs, dtype=torch.float64, device=dev)
+    pos = probs.cpu().numpy() * (higgs.nrow - 1)
+    lo = np.clip(np.floor(pos).astype(np.int64) - 1, 0, higgs.nrow - 1)
+    hi = np.clip(np.ceil(pos).astype(np.int64) + 1, 0, higgs.nrow - 1)
+    qerr = 0.0
+    for name, vals in q.quantiles.items():
+        col = higgs.vec(name).data[:higgs.nrow]
+        srt = torch.sort(col).values.cpu().numpy()
+        _check(bool(np.isfinite(vals).all() and (np.diff(vals) >= 0).all()
+                    and (srt[lo] <= vals).all() and (vals <= srt[hi]).all()),
+               f"quantile {name}: not finite, not sorted or off its rank")
+        want = torch.quantile(col.double(), probs).cpu().numpy()
+        qerr = max(qerr, float(np.abs(vals - want).max()))
+    out["quantile"] = dict(rows=higgs.nrow, columns=len(q.quantiles),
+                           train_s=qs, max_abs_err_vs_torch=qerr)
+    # isotonic regression of the response on f0
+    n = ISOTONIC_ROWS
+    sub = higgs.take(np.arange(n))
+    iso_fr = Frame(["f0", "y"], [sub.vec("f0"),
+                                 Vec(sub.vec("response").data, n)])
+    t0 = time.perf_counter()
+    iso = IsotonicRegression(IsotonicParameters(
+        training_frame=iso_fr, response_column="y")).train_model()
+    m = iso.output.training_metrics
+    yv = higgs.vec("response").data[:n].double()
+    var = float(((yv - yv.mean()) ** 2).mean())
+    out["isotonic"] = dict(rows=n, thresholds=len(iso.xs),
+                           train_s=time.perf_counter() - t0, mse=m.mse,
+                           constant_mse=var)
+    _check(bool(np.all(np.diff(iso.ys) >= 0)) and m.mse < var,
+           f"isotonic: mse {m.mse} not below the constant's {var}")
+    # the core infogram over GBM probes
+    info_fr = higgs.take(np.arange(INFOGRAM_ROWS))
+    _reset_counts()
+    t0 = time.perf_counter()
+    info = Infogram(InfogramParameters(
+        training_frame=info_fr, response_column="response", seed=42,
+        infogram_algorithm_params={"ntrees": 10})).train_model()
+    c = _counts()
+    probes = 1 + len(info.cmi)
+    out["infogram"] = dict(rows=INFOGRAM_ROWS, probes=probes,
+                           train_s=time.perf_counter() - t0, launches=c,
+                           admissible=info.admissible_features)
+    _check(c["flat"] == probes * 10 * 5 and c["grouped"] == 0,
+           f"infogram: launches {c}, want {probes} probes x 10 x 5")
+    vals = list(info.cmi.values()) + list(info.relevance.values())
+    out["infogram"]["max_cmi"] = max(info.cmi.values())
+    _check(all(0 <= v <= 1 + 1e-12 for v in vals)
+           and abs(max(info.cmi.values()) - 1) <= 1e-12,
+           f"infogram: CMI or relevance outside [0, 1]: {info.cmi}, "
+           f"{info.relevance}")
+    launches += c["flat"]
+    print("families_higgs", json.dumps(out), flush=True)
+    return launches
+
+
+def phase_encoders_airlines(dev, fr) -> dict:
+    """On the 7,009,728-row airlines frame: the target encoder (KFold over
+    a 5-fold column, blending, noise 0.01) on Origin, Dest and
+    UniqueCarrier; a 5-tree GBM on the encoded numerics (25 flat
+    launches); segment models of 5-tree GBMs per UniqueCarrier at
+    parallelism 1 and 2, bit-equal segment by segment; the encoder's MOJO
+    on the first 1M rows. Returns the launches by wrapper."""
+    import torch
+
+    from h2o_tpu_torch import (GBM, Frame, GBMParameters,
+                               SegmentModelsBuilder, SegmentModelsParameters,
+                               TargetEncoder, TargetEncoderParameters, Vec)
+
+    n = fr.nrow
+    base = Frame(fr.names, fr.vecs)
+    fold = Vec.from_numpy((np.arange(n) % TE_FOLDS).astype(np.float32),
+                          device=dev)
+    te_fr = Frame(fr.names + ["fold"], fr.vecs + [fold])
+    cols = ["Origin", "Dest", "UniqueCarrier"]
+    out = {}
+    t0 = time.perf_counter()
+    te = TargetEncoder(TargetEncoderParameters(
+        training_frame=te_fr, response_column="IsDepDelayed",
+        columns_to_encode=cols, data_leakage_handling="KFold",
+        fold_column="fold", blending=True, seed=42)).train_model()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = te.transform(te_fr, as_training=True)
+    torch.cuda.synchronize()
+    out["target_encoder"] = dict(rows=n, fit_s=fit_s,
+                                 transform_s=time.perf_counter() - t0)
+    te_names = [f"{c}_te" for c in cols]
+    for name in te_names:
+        v = enc.vec(name).data[:n]
+        _check(bool(torch.isfinite(v).all()) and float(v.min()) > -0.02
+               and float(v.max()) < 1.02, f"target encoder: {name} off")
+    gfr = Frame(te_names + ["CRSDepTime", "Distance", "IsDepDelayed"],
+                [enc.vec(c) for c in te_names + ["CRSDepTime", "Distance",
+                                                 "IsDepDelayed"]])
+    _reset_counts()
+    t0 = time.perf_counter()
+    gbm = GBM(GBMParameters(training_frame=gfr,
+                            response_column="IsDepDelayed", ntrees=5,
+                            max_depth=5, seed=42)).train_model()
+    c = _counts()
+    out["gbm_on_encoded"] = dict(train_s=time.perf_counter() - t0,
+                                 auc=gbm.output.training_metrics.auc,
+                                 launches=c)
+    _check(c["flat"] == 25 and c["grouped"] == 0,
+           f"encoders_airlines: GBM launches {c}, want 25 flat")
+    _check(gbm.output.training_metrics.auc > 0.6,
+           f"encoders_airlines: GBM AUC {gbm.output.training_metrics.auc}")
+    launches = {"flat": c["flat"], "grouped": 0}
+    del gbm, gfr, enc
+    seg_models = []
+    for par in (1, 2):
+        _reset_counts()
+        t0 = time.perf_counter()
+        sm = SegmentModelsBuilder(GBM, GBMParameters(
+            training_frame=base, response_column="IsDepDelayed", ntrees=5,
+            max_depth=5, seed=42), SegmentModelsParameters(
+                segment_columns=["UniqueCarrier"], parallelism=par)
+        ).build_segment_models()
+        torch.cuda.synchronize()
+        c = _counts()
+        launches["flat"] += c["flat"]
+        launches["grouped"] += c["grouped"]
+        out[f"segments_parallelism_{par}"] = dict(
+            segments=len(sm.results), wall_s=time.perf_counter() - t0,
+            launches=c)
+        _check([r["status"] for r in sm.results]
+               == ["SUCCEEDED"] * len(sm.results) and len(sm.results) == 22,
+               f"segments: {[r['errors'] for r in sm.results]}")
+        _check(c["flat"] + c["grouped"] == 22 * 25 and c["gram"] == 0,
+               f"segments: launches {c}, want 22 x 25")
+        seg_models.append(sm.models())
+    for a, b in zip(*seg_models):
+        _check(_forests_bit_equal(a, b),
+               "segments: parallelism 2 differs from the sequential build")
+    sub = te_fr.take(np.arange(TE_MOJO_ROWS))
+    out["mojo"] = _mojo_scores(te, sub, "target_encoder", FAMILIES_TOL,
+                               cols=te_names)
+    print("encoders_airlines", json.dumps(out), flush=True)
+    return launches
+
+
+def _same_tree_arrays(a: dict, b: dict, exact, close, what: str) -> None:
+    """Forest arrays of the card and the CPU: ``exact`` keys equal, ``close``
+    keys within ``FAMILIES_TOL`` relative."""
+    for k in exact:
+        _check(np.array_equal(np.asarray(a[k]), np.asarray(b[k])),
+               f"{what}: {k} differs between the card and the CPU")
+    for k in close:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        _check(bool(np.allclose(x, y, rtol=FAMILIES_TOL, atol=FAMILIES_TOL)),
+               f"{what}: {k} off by {np.abs(x - y).max()}")
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def phase_families_card_vs_cpu(dev) -> dict:
+    """Every new builder on the card and on the CPU at about 50,000 rows:
+    integer results equal (tree structure, split flags and subsample
+    counts, per-level counts as exact leaf rates, tables of counts), float
+    results within ``FAMILIES_TOL``. Returns the card's launches."""
+    import torch
+
+    from h2o_tpu_torch import (AdaBoost, AdaBoostParameters, DT, Frame,
+                               DTParameters, GBM, GBMParameters, Infogram,
+                               InfogramParameters, IsotonicParameters,
+                               IsotonicRegression, NaiveBayes,
+                               NaiveBayesParameters, QuantileBuilder,
+                               QuantileParameters, SegmentModelsBuilder,
+                               SegmentModelsParameters, TargetEncoder,
+                               TargetEncoderParameters, Vec)
+
+    cpu = torch.device("cpu")
+    n = FAMILIES_CPU_ROWS
+    out = {}
+    card = {"flat": 0, "grouped": 0, "gram": 0}
+
+    walls = {}
+
+    def both(fn, what):
+        _reset_counts()
+        t1 = time.perf_counter()
+        a = fn(dev)
+        t2 = time.perf_counter()
+        for k, v in _counts().items():
+            card[k] += v
+        b = fn(cpu)
+        walls[what] = dict(card_s=t2 - t1, cpu_s=time.perf_counter() - t2)
+        return a, b
+
+    def close(a, b, what):
+        a, b = _host(a).astype(np.float64), _host(b).astype(np.float64)
+        err = float(np.nanmax(np.abs(a - b))) if a.size else 0.0
+        _check(np.array_equal(np.isnan(a), np.isnan(b))
+               and err <= FAMILIES_TOL * max(1.0, float(np.nanmax(
+                   np.abs(b))) if b.size else 1.0),
+               f"{what}: card and CPU {err} apart")
+        return err
+
+    t0 = time.perf_counter()
+    # uplift: 3 trees at depth 12 on a 50,000-row Criteo-shaped frame
+    a, b = both(lambda d: _uplift(_criteo_frame(n, d)[0], 3), "uplift")
+    _same_tree_arrays({k: _host(v) for k, v in a.forest.items()},
+                      {k: _host(v) for k, v in b.forest.items()},
+                      ("feat", "thr", "val_t", "val_c"), ("gain",), "uplift")
+    out["uplift"] = close(a.output.training_metrics.qini,
+                          b.output.training_metrics.qini, "uplift qini")
+    # DT on DT_CPU_ROWS covertype rows
+    a, b = both(lambda d: DT(DTParameters(
+        training_frame=_covtype_frame(DT_CPU_ROWS, d),
+        response_column="Cover_Type")).train_model(), "dt")
+    _same_tree_arrays({k: _host(v) for k, v in a.forest.items()},
+                      {k: _host(v) for k, v in b.forest.items()},
+                      ("feat", "nanL", "thr", "val"), (), "dt")
+    _check(np.array_equal(a.edges, b.edges, equal_nan=True),
+           "dt: Exact bin edges differ between the card and the CPU")
+    # both isolation forests on 120,000 credit-card rows (randint path)
+    for what, ext in (("isofor", False), ("eif", True)):
+        frs = {}
+
+        def fit(d, ext=ext):
+            frs[d.type] = _creditcard_frame(ISOFOR_CPU_ROWS, d)[0]
+            return _isofor(frs[d.type], ext, ISOFOR_CPU_TREES)
+        a, b = both(fit, what)
+        ta, tb = [_host(x) for x in a.forest], [_host(x) for x in b.forest]
+        _same_tree_arrays(dict(zip("wtsc", ta)), dict(zip("wtsc", tb)),
+                          ("s", "c") + (() if ext else ("w", "t")),
+                          ("w", "t") if ext else (), what)
+        m = ISOFOR_CPU_ROWS
+        out[what] = close(a.predict(frs[dev.type]).vec(0).data[:m],
+                          b.predict(frs["cpu"]).vec(0).data[:m],
+                          f"{what} scores")
+    # AdaBoost, Naive Bayes, quantiles and isotonic on 50,000 HIGGS rows
+    a, b = both(lambda d: AdaBoost(AdaBoostParameters(
+        training_frame=_higgs_frame(n, d), response_column="response",
+        nlearners=5, seed=42)).train_model(), "adaboost")
+    _check(len(a.learners) == len(b.learners),
+           "adaboost: learner counts differ")
+    out["adaboost"] = close(np.asarray(a.alphas), np.asarray(b.alphas),
+                            "adaboost alphas")
+    for la, lb in zip(a.learners, b.learners):
+        _same_tree_arrays({k: _host(v) for k, v in la.forest.items()},
+                          {k: _host(v) for k, v in lb.forest.items()},
+                          ("feat", "nanL", "thr"), ("val",), "adaboost tree")
+    hf = {d.type: _higgs_frame(n, d) for d in (dev, cpu)}
+    a, b = both(lambda d: NaiveBayes(NaiveBayesParameters(
+        training_frame=hf[d.type], response_column="response")).train_model(),
+        "naivebayes")
+    for k in a.gauss:
+        close(a.gauss[k], b.gauss[k], f"naivebayes {k}")
+    out["naivebayes"] = close(
+        a.predict(hf[dev.type]).vec(2).data[:n],
+        b.predict(hf["cpu"]).vec(2).data[:n], "naivebayes probabilities")
+    a, b = both(lambda d: QuantileBuilder(QuantileParameters(
+        training_frame=hf[d.type])).train_model(), "quantile")
+    for k in a.quantiles:
+        _check(np.array_equal(a.quantiles[k], b.quantiles[k]),
+               f"quantile {k}: card and CPU differ")
+
+    def iso(d):
+        f = hf[d.type]
+        return IsotonicRegression(IsotonicParameters(
+            training_frame=Frame(["f0", "y"], [f.vec("f0"), Vec(
+                f.vec("response").data, n)]),
+            response_column="y")).train_model()
+    a, b = both(iso, "isotonic")
+    _check(np.array_equal(a.xs, b.xs), "isotonic: thresholds differ")
+    out["isotonic"] = close(a.ys, b.ys, "isotonic fit")
+    # infogram: 6 predictors, 3 probes of 3 trees
+    a, b = both(lambda d: Infogram(InfogramParameters(
+        training_frame=hf[d.type], response_column="response", seed=42,
+        ignored_columns=[f"f{j}" for j in range(6, HIGGS_F)],
+        top_n_features=3,
+        infogram_algorithm_params={"ntrees": 3})).train_model(), "infogram")
+    _check(a.output.names == b.output.names
+           and a.admissible_features == b.admissible_features,
+           "infogram: top or admissible features differ")
+    for k in a.cmi_raw:
+        close(a.cmi_raw[k], b.cmi_raw[k], f"infogram cmi {k}")
+    # the target encoder and segment models on 50,000 airlines rows
+    af = {}
+    for d in (dev, cpu):
+        f = _airlines_frame(n, d)
+        f.add("fold", Vec.from_numpy((np.arange(n) % TE_FOLDS).astype(
+            np.float32), device=d))
+        af[d.type] = f
+    a, b = both(lambda d: TargetEncoder(TargetEncoderParameters(
+        training_frame=af[d.type], response_column="IsDepDelayed",
+        columns_to_encode=["Origin", "Dest", "UniqueCarrier"],
+        data_leakage_handling="KFold", fold_column="fold", blending=True,
+        seed=42)).train_model(), "target_encoder")
+    for col in a.encodings:
+        for k in ("num", "den", "fold_num", "fold_den"):
+            _check(torch.equal(a.encodings[col][k].cpu(),
+                               b.encodings[col][k]),
+                   f"target encoder {col} {k}: card and CPU differ")
+    ea = a.transform(af[dev.type], as_training=True)
+    eb = b.transform(af["cpu"], as_training=True)
+    out["target_encoder"] = max(close(ea.vec(c).data[:n], eb.vec(c).data[:n],
+                                      f"target encoder {c}")
+                                for c in ea.names[len(af["cpu"].names):])
+    a, b = both(lambda d: SegmentModelsBuilder(GBM, GBMParameters(
+        training_frame=af[d.type], response_column="IsDepDelayed", ntrees=3,
+        max_depth=3, seed=42, ignored_columns=["fold"]),
+        SegmentModelsParameters(segment_columns=["UniqueCarrier"],
+                                parallelism=2)).build_segment_models(),
+        "segments")
+    _check(len(a.results) == len(b.results) == 22,
+           "segments: segment counts differ")
+    for ra, rb in zip(a.results, b.results):
+        _check(ra["segment"] == rb["segment"], "segments: order differs")
+        _same_tree_arrays({k: _host(v) for k, v in ra["model"].forest.items()},
+                          {k: _host(v) for k, v in rb["model"].forest.items()},
+                          ("feat", "nanL", "catd"), ("thr", "val"),
+                          f"segment {ra['segment']}")
+    out["wall_s"] = time.perf_counter() - t0
+    out["walls"] = walls
+    out["card_launches"] = card
+    print("families_card_vs_cpu", json.dumps(out), flush=True)
+    return card
+
+
 def main() -> int:
     import torch
 
@@ -5340,7 +6159,23 @@ def main() -> int:
                                     lambda d: phase_gam_higgs(d, higgs))
     rf_launches, gram_at_rulefit = run(
         "rulefit_higgs", lambda d: phase_rulefit_higgs(d, higgs))
+    fam_launches = run("families_higgs",
+                       lambda d: phase_families_higgs(d, higgs))
     del higgs
+    t0 = time.perf_counter()
+    criteo, criteo_ate = _criteo_frame(CRITEO_ROWS, dev)
+    print(f"criteo frame {CRITEO_ROWS}x{CRITEO_F + 2}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    uplift = run("uplift_criteo", lambda d: phase_uplift_criteo(
+        d, criteo, criteo_ate))
+    del criteo
+    t0 = time.perf_counter()
+    card, fraud = _creditcard_frame(CREDITCARD_ROWS, dev)
+    print(f"creditcard frame {CREDITCARD_ROWS}x{CREDITCARD_F}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    run("isofor_creditcard", lambda d: phase_isofor_creditcard(d, card,
+                                                               fraud))
+    del card
     cox_launches, gram_at_cox = run("coxph_survival", phase_coxph_survival)
     grc_launches = run("gam_rulefit_coxph_card_vs_cpu",
                        phase_gam_rulefit_coxph_card_vs_cpu)
@@ -5358,14 +6193,19 @@ def main() -> int:
         d, cov, 10, True, "xrt_train", covtype["wrapper"]))
     rec_launches = run("recovery_drf", lambda d: phase_recovery_drf(
         d, cov, covtype["wrapper"]))
+    dt = run("dt_covtype", lambda d: phase_dt_covtype(d, cov))
     del cov
     run("drf_card_vs_cpu", phase_drf_card_vs_cpu)
+    fam_cpu_launches = run("families_card_vs_cpu",
+                           phase_families_card_vs_cpu)
     run("recovery_card_vs_cpu", phase_recovery_card_vs_cpu)
     from h2o_tpu_torch import split_frame
 
     imported, _parse = run("import_csv", phase_import_csv)
     cmp_launches = run("compress_airlines",
                        lambda d: phase_compress_airlines(d, imported))
+    enc_launches = run("encoders_airlines",
+                       lambda d: phase_encoders_airlines(d, imported))
     train, valid, calib = split_frame(imported, ratios=[0.7, 0.15], seed=42)
     del imported
     cv_gbm_launches, hist_at_path = run(
@@ -5461,9 +6301,20 @@ def main() -> int:
                           gam_rulefit_coxph_card_vs_cpu=grc_launches[
                               "gram"])}
     for path, counts in (("encoding_airlines", enc["launches"]),
-                         ("model_surface_card_vs_cpu", surface_launches)):
+                         ("model_surface_card_vs_cpu", surface_launches),
+                         ("encoders_airlines", enc_launches),
+                         ("families_card_vs_cpu", fam_cpu_launches)):
         paths["level_hist"][path] = counts["flat"]
         paths["level_hist_grouped"][path] = counts["grouped"]
+    paths["level_hist"]["families_higgs"] = fam_launches
+    # the tree engine's other families: uplift's V = 4 path and DT's
+    # Exact plan, each under the wrapper its plan took
+    up_entry = ("level_hist" if uplift["wrapper"] == "flat"
+                else "level_hist_grouped")
+    paths[up_entry]["uplift_criteo"] = uplift["launches"]
+    dt_entry = ("level_hist" if dt["wrapper"] == "flat"
+                else "level_hist_grouped")
+    paths[dt_entry]["dt_covtype"] = dt["launches"]
     if ens_launches["grouped"]:
         paths["level_hist_grouped"]["ensemble_covtype"] = \
             ens_launches["grouped"]
@@ -5504,6 +6355,20 @@ def main() -> int:
             e["automl_deep_levels"] = deep_levels
             e["max_abs_err"] = max([e["max_abs_err"]] + [
                 r["max_abs_err"] for r in deep_levels.values()])
+        if name == up_entry:
+            rows = uplift["per_level"]
+            e["uplift_v4_levels"] = dict(
+                n_lv=[r["n_lv"] for r in rows], V=4,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                per_level=rows,
+                **{k: sum(r[k] for r in rows)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   e["uplift_v4_levels"]["max_abs_err"])
+        if name == dt_entry:
+            e["dt_exact_root"] = dt["root_level"]
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   dt["root_level"]["max_abs_err"])
         if name == "level_hist_grouped":
             e["import_cv_gbm_levels"] = hist_at_path
             e["max_abs_err"] = max(e["max_abs_err"],

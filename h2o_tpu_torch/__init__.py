@@ -53,7 +53,13 @@ POJO export of every model kind the reference exports
 (``Model.save_mojo``/``save_pojo``, ``mojo/writer.py``, ``mojo/pojo.py``),
 the standalone host scorer of every MOJO kind (``MojoModel``,
 ``mojo/reader.py``) and ``Generic`` models over it, and ``import_file``
-of Avro, XLSX, XLS, SVMLight and ARFF files.
+of Avro, XLSX, XLS, SVMLight and ARFF files. The tree engine's other
+families: ``UpliftDRF`` (the level-histogram kernel at four channels),
+``DT`` (one tree on ``Exact`` bins), ``AdaBoost`` over the port's
+builders, ``IsolationForest`` and ``ExtendedIsolationForest`` (all trees
+grown as batched tensors), ``NaiveBayes``, ``TargetEncoder``,
+``IsotonicRegression``, ``QuantileBuilder``, ``Infogram`` and
+``SegmentModelsBuilder``.
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -101,6 +107,22 @@ from .models.pca import PCA, SVD, PCAModel, PCAParameters, SVDModel, \
     SVDParameters
 from .models.rulefit import RuleFit, RuleFitModel, RuleFitParameters
 from .models.xgboost import XGBoost, XGBoostParameters
+from .models.adaboost import AdaBoost, AdaBoostModel, AdaBoostParameters
+from .models.dt import DT, DTParameters
+from .models.infogram import Infogram, InfogramModel, InfogramParameters
+from .models.isofor import (ExtendedIsolationForest, IsolationForest,
+                            IsolationForestModel, IsolationForestParameters)
+from .models.isotonic import (IsotonicParameters, IsotonicRegression,
+                              IsotonicRegressionModel)
+from .models.naivebayes import (NaiveBayes, NaiveBayesModel,
+                                NaiveBayesParameters)
+from .models.quantile import (QuantileBuilder, QuantileModel,
+                              QuantileParameters, frame_quantiles)
+from .models.segments import (SegmentModels, SegmentModelsBuilder,
+                              SegmentModelsParameters)
+from .models.target_encoder import (TargetEncoder, TargetEncoderModel,
+                                    TargetEncoderParameters)
+from .models.uplift import UpliftDRF, UpliftDRFModel, UpliftDRFParameters
 from .mojo import MojoModel
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
@@ -121,4 +143,15 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "ModelSelectionParameters", "GAM", "GAMModel", "GAMParameters",
            "RuleFit", "RuleFitModel", "RuleFitParameters", "CoxPH",
            "CoxPHModel", "CoxPHParameters", "Generic", "GenericModel",
-           "GenericParameters", "import_mojo", "MojoModel"]
+           "GenericParameters", "import_mojo", "MojoModel", "UpliftDRF",
+           "UpliftDRFModel", "UpliftDRFParameters", "DT", "DTParameters",
+           "AdaBoost", "AdaBoostModel", "AdaBoostParameters",
+           "IsolationForest", "ExtendedIsolationForest",
+           "IsolationForestModel", "IsolationForestParameters", "NaiveBayes",
+           "NaiveBayesModel", "NaiveBayesParameters", "TargetEncoder",
+           "TargetEncoderModel", "TargetEncoderParameters",
+           "IsotonicRegression", "IsotonicRegressionModel",
+           "IsotonicParameters", "QuantileBuilder", "QuantileModel",
+           "QuantileParameters", "frame_quantiles", "Infogram",
+           "InfogramModel", "InfogramParameters", "SegmentModels",
+           "SegmentModelsBuilder", "SegmentModelsParameters"]

@@ -542,6 +542,7 @@ class GBM(ModelBuilder):
         edges_np = compute_bin_edges_cols(
             feat_vecs, is_cat, p.nbins, seed=_seed(p),
             histogram_type=p.histogram_type,
+            nbins_top_level=int(getattr(p, "nbins_top_level", 1024) or 1024),
             nbins_cats=int(p.nbins_cats or 1024))
         edges = torch.from_numpy(np.nan_to_num(edges_np, nan=np.inf)).to(dev)
         mono_np = np.zeros(len(names), dtype=np.float32)

@@ -323,6 +323,9 @@ class ModelBuilder:
     algo_name = "base"
     supervised = True                 # False: no response (KMeans, PCA, SVD,
                                       # the DL autoencoder)
+    supports_cv = True                # False for transformers that read the
+                                      # fold column themselves (TargetEncoder's
+                                      # KFold strategy)
     _constant_response_check = False  # True in tree builders (SharedTree)
     _offset_supported = False         # True in builders that take an offset
 
@@ -415,7 +418,7 @@ class ModelBuilder:
 
     def _is_cv(self) -> bool:
         p = self.params
-        return p.nfolds >= 2 or bool(p.fold_column)
+        return self.supports_cv and (p.nfolds >= 2 or bool(p.fold_column))
 
     def train(self, background: bool = True) -> Job:
         """trainModel analog: the running Job. The build (with

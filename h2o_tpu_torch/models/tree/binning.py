@@ -302,6 +302,24 @@ def compute_bin_edges_cols(cols, is_cat: np.ndarray, nbins: int,
                              nbins, nbins_top_level, nbins_cats, seed)
 
 
+def compute_bin_edges(X: torch.Tensor, is_cat: np.ndarray, nbins: int,
+                      sample: int = 200_000, seed: int = 1234,
+                      histogram_type: str = "QuantilesGlobal",
+                      nbins_top_level: int = 1024,
+                      nbins_cats: int = 1024,
+                      budget_bytes=_UNSET) -> np.ndarray:
+    """The reference's stacked entry (``binning.py:309``): the bin edges of
+    a (R, F) float32 matrix (NaN = NA or padding), through
+    `compute_bin_edges_cols` on its columns — each column's cuts depend on
+    that column alone, so the stacked and per-column forms give the same
+    edges. ``sample`` is the reference's unused argument, kept for its
+    signature."""
+    return compute_bin_edges_cols(
+        X.unbind(1), is_cat, nbins, seed=seed, histogram_type=histogram_type,
+        nbins_top_level=nbins_top_level, nbins_cats=nbins_cats,
+        budget_bytes=budget_bytes)
+
+
 def bin_column(x: torch.Tensor, erow: torch.Tensor,
                dtype=torch.int32) -> torch.Tensor:
     """(plen,) raw values + that feature's NaN-padded edge row -> bin codes

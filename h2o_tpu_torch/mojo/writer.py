@@ -23,12 +23,18 @@ what the reference writes:
 - KMeans (numeric features only), DeepLearning (supervised only), PCA,
   CoxPH, GAM, RuleFit and stacked ensembles (sub-model MOJOs as nested
   directories, the `MultiModelMojoReader` layout).
+- isolation forests (both forms: per-node directions, cuts, split flags
+  and subsample counts as blobs), isotonic regression (the fitted points
+  in ``model.ini``), the target encoder (its per-level numerator and
+  denominator tables as JSON, the no-leakage path) and uplift DRF (each
+  tree written twice, treatment leaves as group 0 and control leaves as
+  group 1, NA right).
 
 Other algorithms raise ``NotImplementedError`` as the reference's
-``export_mojo`` does (XGBoost, SVD, ANOVA GLM, ModelSelection). The
-reference's writers for isolation forests, isotonic regression, word2vec,
-GLRM, target encoding, uplift DRF and PSVM come with those builders
-(ROADMAP step H); the reader scores their MOJOs already.
+``export_mojo`` does (XGBoost, SVD, ANOVA GLM, ModelSelection); a DT's
+model is a DRF forest and exports as one. The reference's writers for
+word2vec, GLRM and PSVM come with those builders (ROADMAP step H); the
+reader scores their MOJOs already.
 """
 
 from __future__ import annotations
@@ -68,7 +74,13 @@ def export_mojo(model, path: str) -> str:
               "deeplearning": _write_deeplearning_mojo,
               "pca": _write_pca_mojo, "coxph": _write_coxph_mojo,
               "gam": _write_gam_mojo, "rulefit": _write_rulefit_mojo,
-              "stackedensemble": _write_ensemble_mojo}.get(algo)
+              "stackedensemble": _write_ensemble_mojo,
+              "isolationforest": _write_isofor_mojo,
+              "extendedisolationforest": _write_isofor_mojo,
+              "isotonic": _write_isotonic_mojo,
+              "isotonicregression": _write_isotonic_mojo,
+              "targetencoder": _write_targetencoder_mojo,
+              "upliftdrf": _write_uplift_mojo}.get(algo)
     if writer is None:
         raise NotImplementedError(f"MOJO export not implemented for '{algo}'")
     writer(model, path)
@@ -525,4 +537,119 @@ def _write_ensemble_mojo(model, path: str):
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     _write_common(zw, info, columns, domains)
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_isofor_mojo(model, path: str):
+    """Isolation forest MOJO (`hex/genmodel/algos/isofor` role): the
+    per-node split vectors (one-hot for the classic forest), thresholds,
+    split flags and subsample counts as blobs; the scorer reproduces
+    2^(-E[path length] / c(n))."""
+    out = model.output
+    columns = list(out.names)
+    domains = [out.domains.get(n) for n in columns]
+    wvec, thr, is_split, counts = (_np(a) for a in model.forest)
+    info = _common_info(model, model.algo_name, "Isolation Forest",
+                        "AnomalyDetection", 1, columns, domains,
+                        mojo_version=1.00)
+    info.update({
+        "supervised": False,
+        "n_features": len(columns),
+        "n_trees": int(wvec.shape[0]),
+        "n_nodes": int(wvec.shape[1]),
+        "max_depth": int(model.depth),
+        "sample_size": int(model.sample_size),
+    })
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    zw.write_blob("isofor/wvec.bin", wvec.astype("<f4").tobytes())
+    zw.write_blob("isofor/thr.bin", thr.astype("<f4").tobytes())
+    zw.write_blob("isofor/is_split.bin",
+                  is_split.astype(np.uint8).tobytes())
+    zw.write_blob("isofor/counts.bin", counts.astype("<f4").tobytes())
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_isotonic_mojo(model, path: str):
+    """Isotonic MOJO (`IsotonicRegressionMojoWriter` role): the fitted
+    thresholds; scoring interpolates between them, clamped to the fitted
+    range."""
+    columns = list(model.output.names) + [model.params.response_column]
+    domains = [None] * len(columns)
+    info = _common_info(model, "isotonic", "Isotonic Regression",
+                        "Regression", 1, columns, domains, mojo_version=1.00)
+    xs = _np(model.xs, np.float64)
+    ys = _np(model.ys, np.float64)
+    info.update({"n_thresholds": len(xs),
+                 "thresholds_x": list(xs), "thresholds_y": list(ys),
+                 "out_of_bounds": getattr(model.params, "out_of_bounds",
+                                          "clip")})
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_targetencoder_mojo(model, path: str):
+    """Target encoder MOJO (`TargetEncoderMojoWriter` role): per-column
+    numerator and denominator tables, the prior and the blending
+    parameters; the scorer applies the no-leakage path (strategy None), as
+    `TargetEncoderMojoModel` does."""
+    import json
+
+    out = model.output
+    cols = list(model.encodings)
+    columns = cols + [model.params.response_column]
+    domains = [out.domains[c] for c in cols] + [out.response_domain]
+    info = _common_info(model, "targetencoder", "TargetEncoder",
+                        "TargetEncoder", 1, columns, domains,
+                        mojo_version=1.00)
+    p = model.params
+    info.update({
+        "blending": bool(p.blending),
+        "inflection_point": float(p.inflection_point),
+        "smoothing": float(p.smoothing),
+        "prior": [float(v) for v in _np(model.prior)],
+        "keep_original": bool(getattr(p, "keep_original_categorical_columns",
+                                      True)),
+    })
+    tables = {c: {"num": _np(model.encodings[c]["num"], np.float64).tolist(),
+                  "den": _np(model.encodings[c]["den"], np.float64).tolist()}
+              for c in cols}
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    zw.write_text("targetencoder/tables.json", json.dumps(tables))
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_uplift_mojo(model, path: str):
+    """Uplift DRF MOJO (`hex/genmodel/algos/upliftdrf` role): each tree
+    twice in the tree bytecode, group 0 with the treatment leaves and
+    group 1 with the control leaves, NA right; the scorer averages each
+    group and emits [uplift, p_y1_ct1, p_y1_ct0]."""
+    out = model.output
+    columns = list(out.names) + [model.params.response_column]
+    domains = [out.domains.get(n) for n in out.names] + [out.response_domain]
+    feat = _np(model.forest["feat"])
+    thr = _np(model.forest["thr"])
+    val_t = _np(model.forest["val_t"]).astype(np.float64)
+    val_c = _np(model.forest["val_c"]).astype(np.float64)
+    nanL = np.zeros_like(feat, dtype=bool)           # the engine sends NA right
+    T = feat.shape[0]
+    info = _common_info(model, "upliftdrf", "Uplift Distributed Random Forest",
+                        "BinomialUplift", 2, columns, domains,
+                        mojo_version=1.30)
+    info.update({"n_trees": T, "n_trees_per_class": 2,
+                 "max_depth": int(model.cfg.max_depth),
+                 "treatment_column": model.params.treatment_column})
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    for j in range(T):
+        for gi, val in ((0, val_t), (1, val_c)):
+            blob, aux = encode_tree(feat[j], thr[j], nanL[j], val[j])
+            zw.write_blob(f"trees/t{gi:02d}_{j:03d}.bin", blob)
+            zw.write_blob(f"trees/t{gi:02d}_{j:03d}_aux.bin", aux)
     zw.finish(path)

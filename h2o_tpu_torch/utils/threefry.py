@@ -2,7 +2,8 @@
 (``jax/_src/prng.py`` and ``random.py``, threefry2x32 with
 ``jax_threefry_partitionable`` on, jax's default since 0.5): the tree
 engine's bits and uniforms, and DeepLearning's, KMeans' and PCA's
-uniforms on a range, normals, permutations and ``choice`` draws.
+uniforms on a range, normals, permutations, ``choice`` draws and the
+isolation forests' ``randint``.
 
 A key is what ``jax.random.PRNGKey`` holds: a (2,) uint32 numpy array.
 Keys are derived on the host — ``prng_key``, ``fold_in`` and ``split`` are a
@@ -144,6 +145,25 @@ def normal(key, shape, device=None) -> torch.Tensor:
     return np.float32(np.sqrt(2.0)).item() * _erf_inv(u)
 
 
+def randint(key, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 bounds
+    (``_randint``): two 32-bit words per element from the halves of
+    ``split(key)``, folded into the span with uint32 arithmetic — ``(hi %
+    span) * m + lo % span`` with ``m = (2^16 % span)^2 % span``, each
+    product and sum wrapping at 2^32 (so ``m`` is 0 for a span above
+    2^16), then ``% span`` once more. A span of 0 or less draws ``minval``.
+    int64 on ``device``."""
+    span = max(int(maxval) - int(minval), 1)
+    k1, k2 = split(key, 2)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span   # 0 past 2^16
+    off = ((hi % span) * mult) & _MASK
+    off = ((off + lo % span) & _MASK) % span
+    return off + int(minval)
+
+
 def permutation(key, n: int, device=None) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` (``_shuffle`` of ``arange(n)``):
     ⌈3·ln n / ln(2³²−1)⌉ rounds, each splitting the key, drawing one 32-bit
@@ -199,12 +219,13 @@ def choice(key, n: int, shape=(), replace: bool = True, p=None,
       lower index first on ties;
     - no ``p``, no ``replace``: the first k of a permutation.
 
-    (``replace`` without ``p`` — ``randint`` — is not drawn by the port.)"""
+    (``replace`` without ``p`` is ``randint``: call it.)"""
     shape = tuple(int(s) for s in shape)
     k = int(np.prod(shape, dtype=np.int64))
     if p is None:
         if replace:
-            raise NotImplementedError("choice without p needs randint")
+            raise NotImplementedError("choice(replace=True) without p: "
+                                      "use threefry.randint")
         return permutation(key, n, device)[:k].reshape(shape)
     p = p.to(torch.float32)
     if replace:

@@ -20,7 +20,9 @@ streamed) and CoxPH on the card against the CPU at ``chip_smoke.py``'s
 tolerances for them, each Gram call on the card a launch; a MOJO of a
 model trained on the card scored on the host and as a ``Generic`` model
 whose frame lands on the card, and an SVMLight file imported on the card
-bit-equal to the CPU's import.
+bit-equal to the CPU's import; the kernel at V = 4 on uplift's channels
+(every channel exact), an uplift forest and both isolation forests on the
+card against the CPU.
 
 They need a CUDA GPU and skip without one. On the card (which has no JAX,
 so the repo's conftest must not load):
@@ -1141,3 +1143,90 @@ def test_svmlight_imported_on_the_card(dev, tmp_path):
                       distribution="bernoulli", ntrees=2, max_depth=3,
                       seed=42)).train_model()
     assert hist.LAUNCHES == before + 2 * 3
+
+
+def test_v4_kernel_matches_plain_on_uplift_channels(dev):
+    """The kernel at V = 4 on uplift's channels {w_t, w_t y, w_c, w_c y}
+    (0/1 values) at n_lv 1 and 64: every channel equal to the plain
+    version exactly, two launches bit-identical, one launch counted
+    each."""
+    import chip_smoke as cs
+
+    from h2o_tpu_torch.frame.chunks import BinnedView
+    from h2o_tpu_torch.models.tree.binning import compute_bin_edges
+
+    fr, _ate = cs._criteo_frame(50_000, dev)
+    names = [f"f{j}" for j in range(cs.CRITEO_F)]
+    edges = compute_bin_edges(fr.as_matrix(names),
+                              np.zeros(cs.CRITEO_F, bool), 20, seed=42)
+    codes = BinnedView.build([fr.vec(n) for n in names], edges,
+                             names=names).matrix
+    B = edges.shape[1] + 2
+    rl = codes.shape[0]
+    t = torch.nan_to_num(fr.vec("treatment").data)
+    y = torch.nan_to_num(fr.vec("visit").data)
+    for n_lv in (1, 64):
+        rng = np.random.default_rng(n_lv)
+        s = torch.from_numpy((rng.random(rl) < 0.632).astype(np.float32)
+                             ).to(dev)
+        vv = torch.stack([s * t, s * t * y, s * (1 - t), s * (1 - t) * y],
+                         dim=1).contiguous()
+        lc = torch.from_numpy(rng.integers(0, n_lv, rl).astype(np.int32)
+                              ).to(dev)
+        before = hist.LAUNCHES
+        k1 = hist.level_hist_blocks(codes, lc, vv, n_lv=n_lv, nbins_tot=B,
+                                    block=8192)
+        k2 = hist.level_hist_blocks(codes, lc, vv, n_lv=n_lv, nbins_tot=B,
+                                    block=8192)
+        assert hist.LAUNCHES == before + 2
+        plain = hist._torch_flat(codes, lc, vv, n_lv, B)
+        assert torch.equal(k1, k2)
+        assert torch.equal(k1, plain)
+
+
+def test_uplift_tree_on_the_card_matches_the_cpu(dev):
+    """Uplift DRF (3 trees, depth 12) on a 30,000-row Criteo-shaped frame
+    on the card and on the CPU: split features and thresholds equal, leaf
+    rates bit-equal, gains within 1e-6 relative; one V = 4 launch per
+    level on the card."""
+    import chip_smoke as cs
+
+    models = {}
+    for d in (dev, torch.device("cpu")):
+        before = hist.LAUNCHES + hist.GROUPED_LAUNCHES
+        models[d.type] = cs._uplift(cs._criteo_frame(30_000, d)[0], 3)
+        launched = hist.LAUNCHES + hist.GROUPED_LAUNCHES - before
+        assert launched == (3 * 12 if d.type == "cuda" else 0)
+    a, b = ({k: v.cpu().numpy() for k, v in m.forest.items()}
+            for m in (models["cuda"], models["cpu"]))
+    for k in ("feat", "thr", "val_t", "val_c"):
+        assert np.array_equal(a[k], b[k]), k
+    np.testing.assert_allclose(a["gain"], b["gain"], rtol=1e-6, atol=1e-7)
+
+
+def test_isolation_forest_on_the_card_matches_the_cpu(dev):
+    """Both isolation forests (10 trees) on 120,000 credit-card-shaped rows
+    (the ``randint`` subsample): split flags and counts equal, the classic
+    forest's directions and cuts bit-equal, the extended one's within
+    1e-6; scores within 1e-6; no kernel launch."""
+    import chip_smoke as cs
+
+    before = (hist.LAUNCHES, hist.GROUPED_LAUNCHES, gram.GRAM_LAUNCHES)
+    for extended in (False, True):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            fr, _fraud = cs._creditcard_frame(cs.ISOFOR_CPU_ROWS, d)
+            m = cs._isofor(fr, extended, cs.ISOFOR_CPU_TREES)
+            out[d.type] = ([a.cpu().numpy() for a in m.forest],
+                           m.predict(fr).vec(0).to_numpy())
+        (wa, ta, sa, ca), pa = out["cuda"]
+        (wb, tb, sb, cb), pb = out["cpu"]
+        assert np.array_equal(sa, sb) and np.array_equal(ca, cb)
+        if extended:
+            np.testing.assert_allclose(wa, wb, rtol=0, atol=1e-6)
+            np.testing.assert_allclose(ta, tb, rtol=1e-6, atol=1e-6)
+        else:
+            assert np.array_equal(wa, wb) and np.array_equal(ta, tb)
+        np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-6)
+    assert (hist.LAUNCHES, hist.GROUPED_LAUNCHES,
+            gram.GRAM_LAUNCHES) == before

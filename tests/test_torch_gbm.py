@@ -248,7 +248,12 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.mojo.writer, h2o_tpu_torch.mojo.pojo, "
             "h2o_tpu_torch.mojo.easy, h2o_tpu_torch.models.generic, "
             "h2o_tpu_torch.io.avro, h2o_tpu_torch.io.xlsx, "
-            "h2o_tpu_torch.io.xls; "
+            "h2o_tpu_torch.io.xls, h2o_tpu_torch.models.uplift, "
+            "h2o_tpu_torch.models.dt, h2o_tpu_torch.models.isofor, "
+            "h2o_tpu_torch.models.adaboost, h2o_tpu_torch.models.naivebayes, "
+            "h2o_tpu_torch.models.target_encoder, "
+            "h2o_tpu_torch.models.isotonic, h2o_tpu_torch.models.quantile, "
+            "h2o_tpu_torch.models.infogram, h2o_tpu_torch.models.segments; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -12,9 +12,12 @@ epochs), and carried over with the port's ``from_reference``. Contracts:
   each ``model.ini`` (tolerance 0);
 - readers: each package's reader scores the other's MOJO bit-equal to its
   own reader, on the same feature matrix, which both readers build alike
-  from their frames (tolerance 0); the seven kinds the port cannot train
-  yet (isolation forest, isotonic, word2vec, GLRM, target encoder, uplift
-  DRF, PSVM) take the reference writer's MOJO;
+  from their frames (tolerance 0); seven kinds (isolation forest,
+  isotonic, word2vec, GLRM, target encoder, uplift DRF, PSVM) take the
+  reference writer's MOJO, and the port's writers for isolation forests
+  (both forms), isotonic, the target encoder and uplift DRF, carried
+  from the reference's models, write the reference's entries (tolerance
+  0);
 - the port MOJO scores the carried model's own ``predict`` within the
   reference's round-trip tolerances (``test_mojo.py:_roundtrip``: atol
   1e-5, rtol 1e-4; GLM atol 1e-4, its multinomial 2e-4; DL, CoxPH, GAM
@@ -242,19 +245,31 @@ def _fit(case):
 
 
 def _fit_reader_only(case):
-    """A reference model of a kind the port cannot train yet: (reference
-    model, reference frame, port frame, None)."""
+    """A reference model of a kind the reader-only test scores: (reference
+    model, reference frame, port frame, the port's carried model, or None
+    for the kinds the port cannot train yet)."""
+    from h2o_tpu_torch import (IsolationForestModel, IsotonicRegressionModel,
+                               TargetEncoderModel, UpliftDRFModel)
+
+    carriers = {"isofor": IsolationForestModel, "eif": IsolationForestModel,
+                "isotonic": IsotonicRegressionModel,
+                "targetencoder": TargetEncoderModel,
+                "uplift": UpliftDRFModel}
     with meshmod.use_mesh(ONE):
-        if case == "isofor":
-            from h2o_tpu.models.isofor import (IsolationForest,
+        if case in ("isofor", "eif"):
+            from h2o_tpu.models.isofor import (ExtendedIsolationForest,
+                                               IsolationForest,
                                                IsolationForestParameters)
 
             X = np.random.default_rng(2).normal(size=(300, 4)).astype(
                 np.float32)
             X[:5] += 6.0
             fr = _frames({f"x{j}": X[:, j] for j in range(4)})
-            m = IsolationForest(IsolationForestParameters(
+            builder = (ExtendedIsolationForest if case == "eif"
+                       else IsolationForest)
+            m = builder(IsolationForestParameters(
                 training_frame=fr[0], ntrees=2, sample_size=64,
+                extension_level=2 if case == "eif" else 0,
                 seed=3)).train_model()
         elif case == "isotonic":
             from h2o_tpu.models.isotonic import (IsotonicParameters,
@@ -334,7 +349,9 @@ def _fit_reader_only(case):
                                    seed=4)).train_model()
         else:
             raise KeyError(case)
-    return m, fr[0], fr[1], None
+    port = (carriers[case].from_reference(m, "cpu") if case in carriers
+            else None)
+    return m, fr[0], fr[1], port
 
 
 CASES = LazyCases(_fit)
@@ -347,6 +364,9 @@ WRITABLE = ["gbm_regression", "gbm_multinomial", "drf_binomial",
             "deeplearning", "pca", "coxph", "gam", "rulefit"]
 READER_ONLY = ["isofor", "isotonic", "word2vec", "glrm", "targetencoder",
                "uplift", "psvm"]
+#: kinds whose writers came with their builders: written by the port from
+#: the carried model
+NEW_WRITERS = ["isofor", "eif", "isotonic", "targetencoder", "uplift"]
 #: (atol, rtol) of the port MOJO against the carried model's predict
 _TOL = {"glm_regression": (1e-4, 1e-4), "glm_binomial": (1e-4, 1e-4),
         "glm_multinomial": (2e-4, 1e-4), "deeplearning": (1e-4, 1e-4),
@@ -449,8 +469,8 @@ def test_mojo_matches_the_reference(case, tmp_path):
 
 @pytest.mark.parametrize("case", READER_ONLY)
 def test_reference_mojo_scores_alike_in_the_port(case, tmp_path):
-    """The reference writer's MOJO of a kind the port cannot train yet,
-    scored by the port's reader bit-equal to the reference's reader
+    """The reference writer's MOJO of the reader-only kinds, scored by
+    the port's reader bit-equal to the reference's reader
     (tolerance 0); word2vec's lookups and synonyms alike."""
     jm, jfr, tfr, _ = CASES[case]
     path = str(tmp_path / f"{case}.zip")
@@ -464,6 +484,44 @@ def test_reference_mojo_scores_alike_in_the_port(case, tmp_path):
         return
     scores = _scores_alike(path, jfr, tfr)
     assert np.isfinite(scores).all()
+
+
+def test_new_writers_match_the_reference(tmp_path):
+    """The isolation forest (both forms), isotonic, target encoder and
+    uplift DRF writers, one kind after another (one test item: the
+    driver's xdist chunks move with the test count): the carried model's
+    MOJO equals the reference's entry by entry, uuid lines aside
+    (tolerance 0); both readers score it alike (tolerance 0); it scores
+    the carried model's ``predict`` within 1e-5 (the isolation forests'
+    score column, the isotonic fit, the uplift columns; the target
+    encoder's encoded column within 1e-6)."""
+    for case in NEW_WRITERS:
+        _check_new_writer(case, tmp_path)
+
+
+def _check_new_writer(case, tmp_path):
+    jm, jfr, tfr, tm = CASES[case]
+    jpath = str(tmp_path / f"{case}_ref.zip")
+    tpath = str(tmp_path / f"{case}_port.zip")
+    jm.save_mojo(jpath)
+    assert tm.save_mojo(tpath) == tpath
+    je, te = _entries(jpath), _entries(tpath)
+    assert sorted(te) == sorted(je)
+    for name in je:
+        assert te[name] == je[name], name
+    scores = _scores_alike(tpath, jfr, tfr)
+    pred = tm.predict(tfr)
+    if case == "targetencoder":
+        want = pred.vec("c_te").to_numpy()
+        got = scores[:, 0] if scores.ndim == 2 else scores
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    elif case in ("isofor", "eif"):
+        got = scores[:, 0] if scores.ndim == 2 else scores
+        np.testing.assert_allclose(got, pred.vec(0).to_numpy(), rtol=0,
+                                   atol=1e-5)
+    else:
+        want = _predict_matrix(tm, tfr)
+        np.testing.assert_allclose(scores, want, rtol=0, atol=1e-5)
 
 
 def _check_generic_and_easy(jm, tm, tfr, jpath, tpath):
