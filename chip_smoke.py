@@ -441,7 +441,50 @@ order:
     GBMs, one per UniqueCarrier (22), at ``parallelism`` 1 and 2: every
     segment succeeded, 22 x 25 launches each, the two runs' forests
     bit-equal; the encoder's MOJO on the first 1M rows within 1e-6 of
-    its transform.
+    its transform;
+40. ``psvm_higgs`` (after ``families_higgs``): PSVM with the Gaussian
+    kernel (``rank_ratio`` auto: 500 Nystrom landmarks) on the first
+    1,000,000 HIGGS rows and the linear kernel on all 11M: one Gram launch
+    per Newton iteration and no other kernel, the objective never rising,
+    AUC above 0.6, ``sv_count`` in (0, n], each MOJO on 100,000 rows within
+    ``test_mojo_extended.py``'s round trip (p1 atol 1e-4, rtol 1e-3); then
+    the Gram kernel against its plain version on the Gaussian fit's first
+    launch's own inputs (1M x 501);
+41. ``glrm_higgs`` (after ``psvm_higgs``): GLRM on the 11M x 28 HIGGS
+    features, k = 10, Quadratic, STANDARDIZE, PlusPlus, 100 iterations,
+    ``min_step_size`` 1e-9 (at 1e-4 every step at 11M rows is rejected):
+    the objective history never rising and ending below its start,
+    ``transform_frame`` and ``predict`` on every row, the MOJO on 20,000
+    rows within atol and rtol 1e-3 (``test_mojo_extended.py:59``), no
+    kernel launch;
+42. ``word2vec_text8`` (after ``isofor_creditcard``): a generated corpus
+    of text8's shape (``_text8_words``: Zipf over 71,290 words, 20
+    planted topics, sentences of 1,000 tokens), cut to 1,000,000 tokens;
+    Word2Vec (vec_size 100, window 5, 5 negatives, min_word_freq 5, one
+    epoch) twice: the vectors bit-equal, the share of same-topic words
+    among 200 frequent words' 10 nearest at least 5x chance, AVERAGE
+    pooling one finite row a sentence, the MOJO's vectors bit-equal;
+    steps/s; no kernel launch;
+43. ``aggregator_covtype`` (after ``dt_covtype``): Aggregator on the
+    covertype frame's 54 features, target 5,000 exemplars, ``rel_tol``
+    0.5, NORMALIZE, twice: the count within the tolerance (or the search's
+    fallback taken), counts summing to the rows and equal to the
+    assignment's ``bincount``, the two runs bit-equal;
+44. ``lastfamilies_card_vs_cpu`` (after ``families_card_vs_cpu``): PSVM
+    (Gaussian, 20,000 HIGGS rows, three Newton steps: weights within 1e-4
+    x max(1, |beta|),
+    decision values within 1e-4), GLRM (a rank-10 frame, k = 10: history
+    within 1e-5 relative and Y within 1e-4 over 25 iterations, the final
+    objective of 100 within 1e-4), Aggregator (20,000 covertype
+    rows: exemplars and counts equal), Word2Vec (50,000 tokens:
+    vocabulary, pairs and every step's negatives equal, vectors within
+    1e-5) on the card and on the CPU, and DeepLearning and IsolationForest
+    with ``offset_column`` bit-equal to the column ignored;
+45. ``glrm_airlines`` (after ``hglm_airlines``): GLRM on the imported
+    train split's first 1,000,000 rows, every column, k = 5, Categorical
+    blocks, Month's block Ordinal (``loss_by_col``), NonNegative X, the
+    numerics standardized: the checks of ``glrm_higgs`` and X
+    non-negative.
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, SVMLight, ARFF and XLSX
@@ -454,7 +497,8 @@ plan picks carries that path's levels under ``covtype``; the Gram entry
 carries its times at the CV GLM's, at PCA's, at the multinomial
 GLM's class-block design, at the p-values' Fisher pass, at the
 interaction design, at ModelSelection's [X | 1 | y], at GAM's design, at
-a streamed RuleFit block and at a CoxPH Newton pass; the flat entry
+a streamed RuleFit block, at a CoxPH Newton pass and at PSVM's first
+Newton launch (``psvm_shape``); the flat entry
 carries GBM def_5's deep levels; each histogram entry the encoded
 airlines models' root levels that took its wrapper; ``mojo_export``'s
 and ``import_formats``' trainings under ``launches_by_path``, as the new
@@ -6080,6 +6124,585 @@ def phase_families_card_vs_cpu(dev) -> dict:
     return card
 
 
+# ---------------------------------------------------------------------------
+# The last families: PSVM on the Gram kernel, GLRM, Aggregator, Word2Vec
+# ---------------------------------------------------------------------------
+PSVM_ROWS = 1_000_000          # psvm_higgs: the Gaussian fit's HIGGS rows
+                               # (cut from 11M: at m = 500 the feature map
+                               # and the distances are 2 GB each per 1M)
+PSVM_MOJO_ROWS = 100_000       # psvm_higgs: the rows each MOJO scores
+PSVM_MOJO_ATOL, PSVM_MOJO_RTOL = 1e-4, 1e-3   # test_mojo_extended.py:161
+GLRM_AIRLINES_ROWS = 1_000_000  # glrm_airlines: the train split's rows
+GLRM_MIN_STEP = 1e-9           # glrm_*: min_step_size (default 1e-4). Y's
+                               # gradient sums over the rows and the step is
+                               # not scaled by them: at 11M rows every step
+                               # at 1e-4 overshoots and is rejected, in both
+                               # packages (ROADMAP Queue 3)
+GLRM_MOJO_ROWS = 20_000        # glrm_*: the rows each MOJO scores
+GLRM_MOJO_TOL = 1e-3           # test_mojo_extended.py:59 (atol and rtol)
+TEXT8_TOKENS = 1_000_000       # word2vec_text8: text8's 17,005,207 tokens
+                               # cut to 1M (about 9,800 steps an epoch)
+TEXT8_TYPES = 71_290           # text8's distinct words
+TEXT8_TOPICS = 20              # planted topics (function words aside)
+TEXT8_FUNCTION = 150           # the most frequent types, in every topic
+TEXT8_SENTENCE = 1_000         # tokens a sentence, NA between sentences
+TEXT8_RUN = 50                 # tokens a topic run (a paragraph's topic)
+AGG_TARGET = 5_000             # aggregator_covtype: target exemplars
+LAST_CPU_ROWS = 20_000         # lastfamilies_card_vs_cpu: rows per frame
+LAST_CPU_TOKENS = 50_000       # lastfamilies_card_vs_cpu: corpus tokens
+PSVM_CPU_TOL = 1e-4            # card vs CPU: beta (x max(1, |beta|)),
+                               # decision values
+GLRM_HIST_TOL = 1e-5           # card vs CPU: objective history, relative
+GLRM_Y_TOL = 1e-4              # card vs CPU: archetypes
+GLRM_CPU_ITERS = 25            # card vs CPU: iterations the history and Y
+                               # are held over
+GLRM_FINAL_TOL = 1e-4          # card vs CPU: the 100-iteration objective
+W2V_CPU_TOL = 1e-5             # card vs CPU: word vectors after one epoch
+
+
+def _text8_words(ntok: int, seed: int = 8):
+    """A text8-shaped corpus (Matt Mahoney's first 10^8 bytes of English
+    Wikipedia: 17,005,207 tokens over 71,290 words, no punctuation): Zipf
+    frequencies over ``TEXT8_TYPES`` words, the ``TEXT8_FUNCTION`` most
+    frequent ones in every context, the others each planted in one of
+    ``TEXT8_TOPICS`` topics; a sentence is ``TEXT8_SENTENCE`` tokens of
+    ``TEXT8_RUN``-token runs, each run from one topic, 45% of its tokens
+    function words; NA ends a sentence. Returns the
+    host word array (None for NA) and each word's topic (-1: a function
+    word)."""
+    rng = np.random.default_rng(seed)
+    V = TEXT8_TYPES
+    zipf = 1.0 / np.arange(1, V + 1)
+    topic = np.full(V, -1, np.int64)
+    topic[TEXT8_FUNCTION:] = rng.integers(0, TEXT8_TOPICS,
+                                          V - TEXT8_FUNCTION)
+    fn_p = zipf[:TEXT8_FUNCTION] / zipf[:TEXT8_FUNCTION].sum()
+    by_topic = [np.flatnonzero(topic == t) for t in range(TEXT8_TOPICS)]
+    cdfs = [np.cumsum(zipf[ix]) / zipf[ix].sum() for ix in by_topic]
+    nrun = -(-ntok // TEXT8_RUN)
+    run_topic = rng.integers(0, TEXT8_TOPICS, nrun)
+    tok_topic = np.repeat(run_topic, TEXT8_RUN)[:ntok]
+    ids = np.empty(ntok, np.int64)
+    fn = rng.random(ntok) < 0.45
+    ids[fn] = rng.choice(TEXT8_FUNCTION, size=int(fn.sum()), p=fn_p)
+    u = rng.random(ntok)
+    for t in range(TEXT8_TOPICS):
+        sel = ~fn & (tok_topic == t)
+        ids[sel] = by_topic[t][np.minimum(np.searchsorted(cdfs[t], u[sel]),
+                                          len(by_topic[t]) - 1)]
+    names = np.array([f"w{i}" for i in range(V)], dtype=object)
+    # each sentence of TEXT8_SENTENCE tokens followed by an NA row
+    pos = np.arange(ntok)
+    out = np.full(ntok + -(-ntok // TEXT8_SENTENCE), None, dtype=object)
+    out[pos + pos // TEXT8_SENTENCE] = names[ids]
+    return out, dict(zip(names, topic))
+
+
+def _word_frame(words, device):
+    from h2o_tpu_torch import Frame, Vec
+    from h2o_tpu_torch.frame.vec import T_STR
+
+    return Frame(["word"], [Vec(None, len(words), type=T_STR,
+                                host_data=words)])
+
+
+def _w2v(fr, device, epochs: int = 1, min_word_freq: int = 5):
+    from h2o_tpu_torch import Word2Vec, Word2VecParameters
+
+    return Word2Vec(Word2VecParameters(
+        training_frame=fr, vec_size=100, window_size=5, negative_samples=5,
+        min_word_freq=min_word_freq, epochs=epochs, seed=42,
+        device=device)).train_model()
+
+
+class _SgnsSteps:
+    """While open, each Word2Vec step's centers, contexts, negatives and
+    learning rate are kept (host copies), on either device."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import word2vec
+
+        self.orig, self.steps = word2vec._Stepper.__call__, []
+        orig = self.orig
+
+        def kept(stepper, sel, negs, lr):
+            batch = stepper.pairs[sel].cpu().numpy()
+            self.steps.append((batch[:, 0], batch[:, 1], negs.cpu().numpy(),
+                               lr))
+            return orig(stepper, sel, negs, lr)
+        word2vec._Stepper.__call__ = kept
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import word2vec
+
+        word2vec._Stepper.__call__ = self.orig
+
+
+def _psvm(fr, kernel: str, max_iterations: int = 30):
+    from h2o_tpu_torch import PSVM, SVMParameters
+
+    return PSVM(SVMParameters(training_frame=fr, response_column="response",
+                              kernel_type=kernel, hyper_param=1.0,
+                              max_iterations=max_iterations,
+                              seed=42)).train_model()
+
+
+class _PsvmObjective:
+    """While open, the squared-hinge objective at each Newton iteration
+    (the loss the Gram launch's pass returns, and ½‖β‖²)."""
+
+    def __enter__(self):
+        from h2o_tpu_torch.models import psvm
+
+        self.orig, self.obj = psvm._sq_hinge_grad_hess, []
+        orig = self.orig
+
+        def kept(Phib, y, w, beta):
+            g, H, loss = orig(Phib, y, w, beta)
+            self.obj.append(float(loss) + 0.5 * float((beta[:-1] ** 2).sum()))
+            return g, H, loss
+        psvm._sq_hinge_grad_hess = kept
+        return self
+
+    def __exit__(self, *exc):
+        from h2o_tpu_torch.models import psvm
+
+        psvm._sq_hinge_grad_hess = self.orig
+
+
+def _psvm_mojo(model, fr, what: str) -> dict:
+    """The PSVM MOJO scored by the port's reader on ``fr``: p1 within the
+    reference's round trip of ``predict`` (atol 1e-4, rtol 1e-3), labels
+    agreeing on 99% of rows."""
+    import torch
+
+    from h2o_tpu_torch import MojoModel
+
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, f"{what}.zip")
+    model.save_mojo(path)
+    scorer = MojoModel.load(path)
+    t0 = time.perf_counter()
+    got = np.asarray(scorer.score(scorer.feature_frame_matrix(fr)))
+    score_s = time.perf_counter() - t0
+    pred = model.predict(fr)
+    want = torch.stack([pred.vec(j).data[:fr.nrow] for j in range(3)],
+                       dim=1).double().cpu().numpy()
+    excess = np.abs(got[:, 2] - want[:, 2]) - (
+        PSVM_MOJO_ATOL + PSVM_MOJO_RTOL * np.abs(want[:, 2]))
+    agree = float((got[:, 0] == want[:, 0]).mean())
+    out = dict(rows=fr.nrow, mojo_bytes=os.path.getsize(path),
+               score_s=score_s, max_abs_err=float(np.abs(
+                   got[:, 2] - want[:, 2]).max()), label_agreement=agree)
+    os.remove(path)
+    _check(bool(np.isfinite(got).all()) and float(excess.max()) <= 0
+           and agree >= 0.99, f"{what}: MOJO {out}")
+    return out
+
+
+def phase_psvm_higgs(dev, higgs) -> tuple[int, dict]:
+    """PSVM on HIGGS: the Gaussian kernel (``rank_ratio`` auto: m = 500
+    landmarks, the reference's cap) on the first ``PSVM_ROWS`` rows, then
+    the linear kernel on all 11M. Each fit: Gram launches equal its Newton
+    iterations and no other kernel launches; the objective does not rise;
+    training AUC finite and above 0.6; ``sv_count`` in (0, n]; its MOJO on
+    ``PSVM_MOJO_ROWS`` rows within the reference's round trip. Then the
+    Gram kernel against its plain version on the Gaussian fit's first
+    launch's own inputs (Φb at P = 501, W = 2·active, z = −y·m). Returns
+    the launches and that check."""
+    import torch
+
+    from h2o_tpu_torch.models import psvm
+
+    out, launches = {}, 0
+    first = None
+    for what, fr, kernel in (
+            ("gaussian", higgs.take(np.arange(PSVM_ROWS)), "gaussian"),
+            ("linear", higgs, "linear")):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _GramInputs(psvm, first=True) as kept, _PsvmObjective() as ob:
+            model = _psvm(fr, kernel)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        c = _counts()
+        launches += c["gram"]
+        auc = model.output.training_metrics.auc
+        obj = ob.obj
+        r = dict(rows=fr.nrow, train_s=train_s, iterations=model.iterations,
+                 launches=c, sv_count=model.sv_count, auc=auc,
+                 objective=obj, landmarks=(0 if model.landmarks is None
+                                           else model.landmarks.shape[0]),
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        _check(c["gram"] == model.iterations and c["flat"] == c["grouped"]
+               == 0, f"psvm_higgs {what}: {c} for {model.iterations} "
+                     f"iterations")
+        _check(all(b <= a * (1 + 1e-6) for a, b in zip(obj, obj[1:])),
+               f"psvm_higgs {what}: objective rose {obj}")
+        _check(auc is not None and np.isfinite(auc) and auc > 0.6,
+               f"psvm_higgs {what}: AUC {auc}")
+        _check(0 < model.sv_count <= fr.nrow,
+               f"psvm_higgs {what}: sv_count {model.sv_count}")
+        r["mojo"] = _psvm_mojo(model, fr.take(np.arange(PSVM_MOJO_ROWS)),
+                               f"psvm_{what}")
+        if first is None:
+            first = kept.last
+        out[what] = r
+        del model, kept
+    X, W, z = first
+    shape = _gram_check(X, W, z, reps=5)
+    del first, X, W, z
+    out["gram_at_path"] = shape
+    print("psvm_higgs", json.dumps(out), flush=True)
+    return launches, shape
+
+
+def _glrm(fr, **kw):
+    from h2o_tpu_torch import GLRM, GLRMParameters
+
+    return GLRM(GLRMParameters(training_frame=fr, seed=42,
+                               **kw)).train_model()
+
+
+def _glrm_checks(model, fr, what: str) -> dict:
+    """The history never rises and ends below its start; ``transform_frame``
+    and ``predict`` run on every row, finite where the frame is observed;
+    the MOJO reconstructs ``GLRM_MOJO_ROWS`` rows within the reference's
+    round trip."""
+    import torch
+
+    from h2o_tpu_torch import MojoModel
+
+    hist = [h["objective"] for h in model.output.scoring_history]
+    _check(all(b <= a for a, b in zip(hist, hist[1:])) and hist[-1] < hist[0],
+           f"{what}: objective history {hist[:3]}...{hist[-3:]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arch = model.transform_frame(fr)
+    rec = model.predict(fr)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    _check(arch.nrow == rec.nrow == fr.nrow
+           and all(bool(torch.isfinite(v.data[:fr.nrow]).all())
+                   for v in arch.vecs),
+           f"{what}: transform_frame not finite")
+    sub = fr.take(np.arange(GLRM_MOJO_ROWS))
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, f"{what}.zip")
+    model.save_mojo(path)
+    scorer = MojoModel.load(path)
+    got = np.asarray(scorer.predict(sub))
+    want = torch.stack([v.data[:GLRM_MOJO_ROWS] for v in rec.vecs],
+                       dim=1).double().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    excess = float((np.abs(got - want) - GLRM_MOJO_TOL
+                    * (1 + np.abs(want))).max())
+    os.remove(path)
+    _check(excess <= 0, f"{what}: MOJO off predict by {err}")
+    return dict(objective_first=hist[0], objective_last=hist[-1],
+                iterations=len(hist), archetypes=list(model.Y.shape),
+                transform_predict_s=score_s, mojo_max_abs_err=err)
+
+
+def phase_glrm_higgs(dev, higgs) -> dict:
+    """GLRM on the 11M x 28 HIGGS features (the response left out): k = 10,
+    Quadratic loss, STANDARDIZE, PlusPlus init, 100 iterations (the
+    defaults), ``min_step_size`` ``GLRM_MIN_STEP``; the checks of
+    ``_glrm_checks``; no kernel launches."""
+    import torch
+
+    fr = higgs.subframe([f"f{j}" for j in range(HIGGS_F)])
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _glrm(fr, k=10, transform="STANDARDIZE", init="PlusPlus",
+                  min_step_size=GLRM_MIN_STEP)
+    torch.cuda.synchronize()
+    out = dict(rows=fr.nrow, train_s=time.perf_counter() - t0)
+    out.update(_glrm_checks(model, fr, "glrm_higgs"))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    c = _counts()
+    _check(sum(c.values()) == 0, f"glrm_higgs: kernel launches {c}")
+    print("glrm_higgs", json.dumps(out), flush=True)
+    return out
+
+
+def phase_glrm_airlines(dev, train) -> dict:
+    """GLRM on the imported airlines train split's first
+    ``GLRM_AIRLINES_ROWS`` rows, every column: k = 5, the Categorical
+    multi-loss on the categorical blocks, Month's block Ordinal through
+    ``loss_by_col``, NonNegative X, the numerics standardized; the checks of ``_glrm_checks`` and X
+    non-negative; no kernel launches."""
+    import torch
+
+    fr = train.take(np.arange(GLRM_AIRLINES_ROWS))
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _glrm(fr, k=5, multi_loss="Categorical",
+                  loss_by_col={"Month": "Ordinal"},
+                  regularization_x="NonNegative", init="PlusPlus",
+                  transform="STANDARDIZE", min_step_size=GLRM_MIN_STEP)
+    torch.cuda.synchronize()
+    out = dict(rows=fr.nrow, train_s=time.perf_counter() - t0,
+               expanded=model.Y.shape[1])
+    out.update(_glrm_checks(model, fr, "glrm_airlines"))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _check(bool((model.X >= 0).all()), "glrm_airlines: X negative")
+    c = _counts()
+    _check(sum(c.values()) == 0, f"glrm_airlines: kernel launches {c}")
+    print("glrm_airlines", json.dumps(out), flush=True)
+    return out
+
+
+def phase_word2vec_text8(dev) -> dict:
+    """Word2Vec on the text8-shaped corpus (``_text8_words``): vec_size
+    100, window 5, 5 negatives, min_word_freq 5, one epoch (cut from 5),
+    twice: the two models' vectors bit-equal; among the 10 nearest words
+    of 200 frequent topical words, the share of their own topic at least
+    5x the chance share; ``transform`` with AVERAGE gives one finite row a
+    sentence; the MOJO's vectors bit-equal to the model's; steps/s; no
+    kernel launches."""
+    import torch
+
+    from h2o_tpu_torch import MojoModel
+
+    t0 = time.perf_counter()
+    words, topic = _text8_words(TEXT8_TOKENS)
+    gen_s = time.perf_counter() - t0
+    fr = _word_frame(words, dev)
+    models, walls = [], []
+    _reset_counts()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models.append(_w2v(fr, dev))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    a, b = models
+    _check(a.vocab == b.vocab and np.array_equal(
+        a.vectors.view(np.int32), b.vectors.view(np.int32)),
+        "word2vec_text8: two runs differ")
+    steps = a.output.scoring_history[0]["steps"]
+    inv = list(a.vocab)
+    counts = np.bincount([a.vocab[w] for w in words
+                          if w is not None and w in a.vocab],
+                         minlength=len(inv))
+    cand = [i for i in np.argsort(-counts) if topic[inv[i]] >= 0][:200]
+    same = []
+    for i in cand:
+        syn = a.find_synonyms(inv[i], 10)
+        same += [topic[w] == topic[inv[i]] for w in syn]
+    share = float(np.mean(same))
+    topical = np.array([topic[w] for w in inv])
+    chance = float(np.mean([np.mean(topical == topical[i]) for i in cand]))
+    pooled = a.transform(fr.vec(0), aggregate_method="AVERAGE")
+    nsent = sum(1 for w in words if w is None)
+    _check(pooled.nrow == nsent and bool(np.isfinite(
+        pooled.vec(0).to_numpy()).all()), "word2vec_text8: AVERAGE rows")
+    os.makedirs(DATA_DIR, exist_ok=True)
+    path = os.path.join(DATA_DIR, "word2vec.zip")
+    a.save_mojo(path)
+    scorer = MojoModel.load(path)
+    got = scorer.transform(inv)
+    os.remove(path)
+    _check(np.array_equal(got, a.vectors.astype(np.float64)),
+           "word2vec_text8: MOJO vectors differ")
+    c = _counts()
+    out = dict(tokens=TEXT8_TOKENS, vocab=len(inv), steps=steps,
+               pairs=a.output.scoring_history[0]["pairs"], gen_s=gen_s,
+               train_s=walls, steps_per_s=steps / walls[0],
+               same_topic_share=share, chance_share=chance,
+               sentences=nsent, launches=c)
+    print("word2vec_text8", json.dumps(out), flush=True)
+    _check(share >= 5 * chance, f"word2vec_text8: same-topic share {share} "
+                                f"against chance {chance}")
+    _check(sum(c.values()) == 0, f"word2vec_text8: kernel launches {c}")
+    return out
+
+
+def _aggregate(fr, target: int = AGG_TARGET):
+    from h2o_tpu_torch import Aggregator, AggregatorParameters
+
+    return Aggregator(AggregatorParameters(
+        training_frame=fr, target_num_exemplars=target,
+        rel_tol_num_exemplars=0.5, transform="NORMALIZE")).train_model()
+
+
+def phase_aggregator_covtype(dev, cov) -> dict:
+    """Aggregator on the covertype-shaped frame (581,012 x 54, the class
+    column left out), target 5,000 exemplars, ``rel_tol`` 0.5, NORMALIZE,
+    twice: the exemplar count within the tolerance of the target (or the
+    reference's fallback took the last radius), the counts summing to the
+    rows and equal to the assignment's ``bincount``, the two runs
+    bit-equal; no kernel launches."""
+    import torch
+
+    fr = cov.subframe([n for n in cov.names if n != "Cover_Type"])
+    models, walls = [], []
+    _reset_counts()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models.append(_aggregate(fr))
+        walls.append(time.perf_counter() - t0)
+    a, b = models
+    agg = a.aggregated_frame
+    counts = agg.vec("counts").to_numpy()
+    hist = a.output.scoring_history[0]
+    ok_n = abs(agg.nrow - AGG_TARGET) <= 0.5 * AGG_TARGET
+    out = dict(rows=fr.nrow, exemplars=agg.nrow, passes=hist["passes"],
+               fallback=hist["fallback"], within_tol=ok_n, train_s=walls,
+               launches=_counts())
+    print("aggregator_covtype", json.dumps(out), flush=True)
+    _check(ok_n or hist["fallback"],
+           f"aggregator_covtype: {agg.nrow} exemplars")
+    _check(int(counts.sum()) == fr.nrow and np.array_equal(
+        counts, np.bincount(a.exemplar_assignment)),
+        "aggregator_covtype: counts")
+    bg = b.aggregated_frame
+    _check(np.array_equal(a.exemplar_assignment, b.exemplar_assignment)
+           and all(np.array_equal(agg.vec(n).to_numpy(), bg.vec(n).to_numpy(),
+                                  equal_nan=True) for n in agg.names),
+           "aggregator_covtype: two runs differ")
+    _check(sum(out["launches"].values()) == 0,
+           f"aggregator_covtype: kernel launches {out['launches']}")
+    return out
+
+
+def phase_lastfamilies_card_vs_cpu(dev) -> dict:
+    """The last families on the card and on the CPU: PSVM (Gaussian, m = 500,
+    on ``LAST_CPU_ROWS`` HIGGS rows, three Newton steps) weights within 1e-4·max(1, |β|) and
+    decision values within 1e-4; GLRM (a rank-10 frame with noise,
+    ``LAST_CPU_ROWS`` x 28, k = 10) the objective history within 1e-5
+    relative and Y within 1e-4 over ``GLRM_CPU_ITERS`` iterations, and the
+    final objective of 100 within 1e-4 relative; Aggregator
+    (covertype rows) exemplar rows and counts equal; Word2Vec
+    (``LAST_CPU_TOKENS`` tokens) vocabulary, pairs, every step's negatives
+    equal and the vectors within ``W2V_CPU_TOL``; DeepLearning and
+    IsolationForest with ``offset_column`` bit-equal to the same builder
+    with the column ignored. Returns the card's launches."""
+    import torch
+
+    from h2o_tpu_torch import (DeepLearning, DeepLearningParameters, Frame,
+                               IsolationForest, IsolationForestParameters,
+                               Vec)
+
+    cpu = torch.device("cpu")
+    n = LAST_CPU_ROWS
+    out = {}
+    card_launches = dict(gram=0, flat=0, grouped=0)
+
+    def on_card(fn):
+        _reset_counts()
+        r = fn()
+        for k, v in _counts().items():
+            card_launches[k] += v
+        return r
+
+    hig = _higgs_frame(n, dev)
+    hig_cpu = _cpu_frame(hig)
+    # PSVM, three Newton steps on each device: the stopping rule compares
+    # two float32 objective sums at 1e-8 relative, so where the fit stops
+    # moves by one iteration with their rounding (an ulp-sized step then
+    # moves beta by ~1e-3)
+    a = on_card(lambda: _psvm(hig, "gaussian", max_iterations=3))
+    b = _psvm(hig_cpu, "gaussian", max_iterations=3)
+    ba, bb = _host(a.beta), _host(b.beta)
+    db = float((np.abs(ba - bb) / np.maximum(1, np.abs(bb))).max())
+    da = _host(a.decision_function(a.adapt_frame(hig)))[:n]
+    dc = _host(b.decision_function(b.adapt_frame(hig_cpu)))[:n]
+    dd = float(np.abs(da - dc).max())
+    out["psvm"] = dict(beta_rel=db, decision_abs=dd, iterations=[
+        a.iterations, b.iterations], sv=[a.sv_count, b.sv_count])
+    _check(db <= PSVM_CPU_TOL and dd <= PSVM_CPU_TOL,
+           f"lastfamilies_card_vs_cpu psvm: {out['psvm']}")
+    # GLRM on a rank-10 signal with noise. The backtracking rule compares
+    # two float32 objectives: once the descent flattens, an ulp flips an
+    # accept and the paths part (on one CPU, 1 and 8 threads part at
+    # iteration 32 of 100, Y by 0.15, the last objectives within 1e-6).
+    # So the trajectory is held over its first GLRM_CPU_ITERS iterations
+    # and the 100-iteration run by its final objective
+    rng = np.random.default_rng(10)
+    A = (rng.normal(size=(n, 10)) * np.linspace(3, 1, 10)
+         @ rng.normal(size=(10, HIGGS_F))
+         + 0.3 * rng.normal(size=(n, HIGGS_F))).astype(np.float32)
+    low = Frame.from_dict({f"c{j}": A[:, j] for j in range(HIGGS_F)},
+                          device=dev)
+    low_cpu = _cpu_frame(low)
+    hist = lambda m: np.array([h["objective"]
+                               for h in m.output.scoring_history])
+    a = on_card(lambda: _glrm(low, k=10, transform="STANDARDIZE",
+                              max_iterations=GLRM_CPU_ITERS))
+    b = _glrm(low_cpu, k=10, transform="STANDARDIZE",
+              max_iterations=GLRM_CPU_ITERS)
+    dh = float((np.abs(hist(a) - hist(b)) / np.abs(hist(b))).max())
+    dy = float(np.abs(_host(a.Y) - _host(b.Y)).max())
+    a = on_card(lambda: _glrm(low, k=10, transform="STANDARDIZE"))
+    b = _glrm(low_cpu, k=10, transform="STANDARDIZE")
+    df = abs(hist(a)[-1] - hist(b)[-1]) / abs(hist(b)[-1])
+    out["glrm"] = dict(history_rel=dh, y_abs=dy, final_rel=df)
+    _check(dh <= GLRM_HIST_TOL and dy <= GLRM_Y_TOL
+           and df <= GLRM_FINAL_TOL,
+           f"lastfamilies_card_vs_cpu glrm: {out['glrm']}")
+    del hig, hig_cpu
+    # Aggregator
+    cov = _covtype_frame(n, dev)
+    cov = cov.subframe([c for c in cov.names if c != "Cover_Type"])
+    a = on_card(lambda: _aggregate(cov, 500))
+    b = _aggregate(_cpu_frame(cov), 500)
+    ga, gb = a.aggregated_frame, b.aggregated_frame
+    _check(np.array_equal(a.exemplar_assignment, b.exemplar_assignment)
+           and all(np.array_equal(ga.vec(c).to_numpy(), gb.vec(c).to_numpy(),
+                                  equal_nan=True) for c in ga.names),
+           "lastfamilies_card_vs_cpu aggregator: exemplars differ")
+    out["aggregator"] = dict(exemplars=ga.nrow)
+    del cov
+    # Word2Vec
+    words, _ = _text8_words(LAST_CPU_TOKENS, seed=9)
+    fr = _word_frame(words, dev)
+    with _SgnsSteps() as sa:
+        a = on_card(lambda: _w2v(fr, dev, min_word_freq=2))
+    with _SgnsSteps() as sb:
+        b = _w2v(fr, cpu, min_word_freq=2)
+    _check(a.vocab == b.vocab and len(sa.steps) == len(sb.steps)
+           and all(all(np.array_equal(x, y) for x, y in zip(p[:3], q[:3]))
+                   and p[3] == q[3] for p, q in zip(sa.steps, sb.steps)),
+           "lastfamilies_card_vs_cpu word2vec: pairs or negatives differ")
+    dv = float(np.abs(a.vectors - b.vectors).max())
+    out["word2vec"] = dict(vocab=len(a.vocab), steps=len(sa.steps),
+                           vectors_abs=dv)
+    _check(dv <= W2V_CPU_TOL,
+           f"lastfamilies_card_vs_cpu word2vec: vectors {dv}")
+    # offsets: the column left out of the features, as ignored
+    cols, y = _higgs_cols(n, seed=7)
+    cols = {k: cols[k] for k in list(cols)[:6]}
+    cols["off"] = (0.1 * np.arange(n) % 1).astype(np.float32)
+    ofr = Frame.from_dict(cols, device=dev)
+    ofr.add("response", Vec.from_numpy(y, device=dev))
+    for what, fn in (
+            ("deeplearning", lambda **kw: DeepLearning(DeepLearningParameters(
+                training_frame=ofr, response_column="response",
+                hidden=[16], epochs=1, seed=42, **kw)).train_model()),
+            ("isolationforest", lambda **kw: IsolationForest(
+                IsolationForestParameters(training_frame=ofr, ntrees=10,
+                                          seed=42, **kw)).train_model())):
+        pa = on_card(lambda: fn(offset_column="off")).predict(ofr)
+        pb = fn(ignored_columns=["off"]).predict(ofr)
+        _check(all(torch.equal(x.data.nan_to_num(7.25), y.data.nan_to_num(
+            7.25)) for x, y in zip(pa.vecs, pb.vecs)),
+            f"lastfamilies_card_vs_cpu: {what} with an offset column")
+    out["offsets"] = ["deeplearning", "isolationforest"]
+    out["launches"] = card_launches
+    print("lastfamilies_card_vs_cpu", json.dumps(out), flush=True)
+    return card_launches
+
+
 def main() -> int:
     import torch
 
@@ -6161,6 +6784,9 @@ def main() -> int:
         "rulefit_higgs", lambda d: phase_rulefit_higgs(d, higgs))
     fam_launches = run("families_higgs",
                        lambda d: phase_families_higgs(d, higgs))
+    psvm_launches, gram_at_psvm = run(
+        "psvm_higgs", lambda d: phase_psvm_higgs(d, higgs))
+    run("glrm_higgs", lambda d: phase_glrm_higgs(d, higgs))
     del higgs
     t0 = time.perf_counter()
     criteo, criteo_ate = _criteo_frame(CRITEO_ROWS, dev)
@@ -6176,6 +6802,7 @@ def main() -> int:
     run("isofor_creditcard", lambda d: phase_isofor_creditcard(d, card,
                                                                fraud))
     del card
+    run("word2vec_text8", phase_word2vec_text8)
     cox_launches, gram_at_cox = run("coxph_survival", phase_coxph_survival)
     grc_launches = run("gam_rulefit_coxph_card_vs_cpu",
                        phase_gam_rulefit_coxph_card_vs_cpu)
@@ -6194,10 +6821,13 @@ def main() -> int:
     rec_launches = run("recovery_drf", lambda d: phase_recovery_drf(
         d, cov, covtype["wrapper"]))
     dt = run("dt_covtype", lambda d: phase_dt_covtype(d, cov))
+    run("aggregator_covtype", lambda d: phase_aggregator_covtype(d, cov))
     del cov
     run("drf_card_vs_cpu", phase_drf_card_vs_cpu)
     fam_cpu_launches = run("families_card_vs_cpu",
                            phase_families_card_vs_cpu)
+    last_cpu_launches = run("lastfamilies_card_vs_cpu",
+                            phase_lastfamilies_card_vs_cpu)
     run("recovery_card_vs_cpu", phase_recovery_card_vs_cpu)
     from h2o_tpu_torch import split_frame
 
@@ -6219,6 +6849,7 @@ def main() -> int:
         "glm_interactions_airlines",
         lambda d: phase_glm_interactions_airlines(d, train, valid))
     run("hglm_airlines", lambda d: phase_hglm_airlines(d, train))
+    run("glrm_airlines", lambda d: phase_glrm_airlines(d, train))
     air = train.take(np.arange(SURFACE_CPU_ROWS))
     del train, valid, calib
     surface_launches = run("model_surface_card_vs_cpu",
@@ -6299,6 +6930,9 @@ def main() -> int:
                           rulefit_higgs=rf_launches["gram"],
                           coxph_survival=cox_launches,
                           gam_rulefit_coxph_card_vs_cpu=grc_launches[
+                              "gram"],
+                          psvm_higgs=psvm_launches,
+                          lastfamilies_card_vs_cpu=last_cpu_launches[
                               "gram"])}
     for path, counts in (("encoding_airlines", enc["launches"]),
                          ("model_surface_card_vs_cpu", surface_launches),
@@ -6388,6 +7022,9 @@ def main() -> int:
             e["gam_shape"] = _gram_shape(gram_at_gam)
             e["rulefit_block_shape"] = _gram_shape(gram_at_rulefit)
             e["coxph_shape"] = _gram_shape(gram_at_cox)
+            # PSVM's Newton Hessian and gradient: the Gaussian fit's first
+            # launch, the Nystrom features (500 landmarks + the bias)
+            e["psvm_shape"] = _gram_shape(gram_at_psvm)
             e["max_abs_err"] = max(e["max_abs_err"],
                                    gram_at_path["max_abs_err"],
                                    gram_at_pca["max_abs_err"],
@@ -6397,7 +7034,8 @@ def main() -> int:
                                    gram_at_sweep["max_abs_err"],
                                    gram_at_gam["max_abs_err"],
                                    gram_at_rulefit["max_abs_err"],
-                                   gram_at_cox["max_abs_err"])
+                                   gram_at_cox["max_abs_err"],
+                                   gram_at_psvm["max_abs_err"])
         entries.append(e)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

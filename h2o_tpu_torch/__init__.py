@@ -59,7 +59,13 @@ families: ``UpliftDRF`` (the level-histogram kernel at four channels),
 builders, ``IsolationForest`` and ``ExtendedIsolationForest`` (all trees
 grown as batched tensors), ``NaiveBayes``, ``TargetEncoder``,
 ``IsotonicRegression``, ``QuantileBuilder``, ``Infogram`` and
-``SegmentModelsBuilder``.
+``SegmentModelsBuilder``. The last families: ``PSVM`` (a Nyström feature
+map, then Newton on the squared hinge with one Gram kernel launch an
+iteration), ``GLRM`` (every loss and regularizer, the three inits),
+``Aggregator`` (the greedy exemplar pass and its radius search) and
+``Word2Vec`` (skip-gram with negative sampling, deterministic scatter-adds
+on the card), with the PSVM, GLRM and word2vec MOJO writers. Every builder
+takes ``offset_column`` as the reference's does.
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -123,6 +129,11 @@ from .models.segments import (SegmentModels, SegmentModelsBuilder,
 from .models.target_encoder import (TargetEncoder, TargetEncoderModel,
                                     TargetEncoderParameters)
 from .models.uplift import UpliftDRF, UpliftDRFModel, UpliftDRFParameters
+from .models.aggregator import (Aggregator, AggregatorModel,
+                                AggregatorParameters)
+from .models.glrm import GLRM, GLRMModel, GLRMParameters
+from .models.psvm import PSVM, SVMModel, SVMParameters
+from .models.word2vec import Word2Vec, Word2VecModel, Word2VecParameters
 from .mojo import MojoModel
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
@@ -154,4 +165,8 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "IsotonicParameters", "QuantileBuilder", "QuantileModel",
            "QuantileParameters", "frame_quantiles", "Infogram",
            "InfogramModel", "InfogramParameters", "SegmentModels",
-           "SegmentModelsBuilder", "SegmentModelsParameters"]
+           "SegmentModelsBuilder", "SegmentModelsParameters", "PSVM",
+           "SVMModel", "SVMParameters", "GLRM", "GLRMModel",
+           "GLRMParameters", "Aggregator", "AggregatorModel",
+           "AggregatorParameters", "Word2Vec", "Word2VecModel",
+           "Word2VecParameters"]

@@ -246,7 +246,6 @@ class GAMModel(Model):
 
 class GAM(ModelBuilder):
     algo_name = "gam"
-    _offset_supported = True
 
     def _validate(self):
         super()._validate()

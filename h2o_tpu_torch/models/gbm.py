@@ -446,8 +446,7 @@ class GBM(ModelBuilder):
     # the reference's tree builders take an offset column, drop it from
     # the features (`model_base.py:373,386`) and never read it; XGBoost's
     # gblinear passes it to its GLM. Reproduced on purpose: H2O-3's GBM
-    # fits offsets (ROADMAP Queue 3)
-    _offset_supported = True
+    # fits offsets (ROADMAP Queue 3 item 19)
     model_class = GBMModel
     _constant_response_check = True  # `hex/tree/SharedTree.init` check
 

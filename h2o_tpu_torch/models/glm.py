@@ -1018,7 +1018,6 @@ def _on_dev(beta: np.ndarray, dev) -> torch.Tensor:
 
 class GLM(ModelBuilder):
     algo_name = "glm"
-    _offset_supported = True   # `glm.py:1233-1234`
 
     def _validate(self):
         super()._validate()

@@ -327,7 +327,6 @@ class ModelBuilder:
                                       # fold column themselves (TargetEncoder's
                                       # KFold strategy)
     _constant_response_check = False  # True in tree builders (SharedTree)
-    _offset_supported = False         # True in builders that take an offset
 
     def __init__(self, params: Parameters):
         self.params = params
@@ -351,10 +350,6 @@ class ModelBuilder:
             if p.training_frame.find(p.response_column) < 0:
                 raise ValueError(f"response_column '{p.response_column}' "
                                  "not in frame")
-        if p.offset_column and not self._offset_supported:
-            raise NotImplementedError(f"{self.algo_name}: offset columns "
-                                      "(ROADMAP Queue 1 item 6) are not "
-                                      "ported yet")
         cmf = p.custom_metric_func
         if isinstance(cmf, str) and cmf.startswith("python:"):
             # the reference resolves it through an uploaded file in the
@@ -374,7 +369,10 @@ class ModelBuilder:
 
     def feature_names(self) -> list[str]:
         """Non-ignored, non-special columns; constant and all-NA columns
-        drop out under ``ignore_const_cols`` (the reference's rule)."""
+        drop out under ``ignore_const_cols`` (the reference's rule). Every
+        builder takes an ``offset_column`` and leaves it out here
+        (reference ``model_base.py:373,386``); only GLM, GAM, ANOVA GLM's
+        sub-fits and XGBoost's gblinear read it, as in the reference."""
         p = self.params
         skip = set(p.ignored_columns) | {p.response_column, p.weights_column,
                                          p.offset_column, p.fold_column, None}

@@ -402,11 +402,19 @@ class RuleFit(ModelBuilder):
             for depth in depths:
                 job.check_cancelled()
                 algo = (p.algorithm or "AUTO").upper()
+                # the sub-forests split on RuleFit's own features only, so
+                # a rule's feature index is a column of the design (the
+                # reference trains them on every column, and an offset or
+                # ignored column shifts its indices: ROADMAP Queue 3)
                 common = dict(training_frame=fr,
                               response_column=p.response_column,
                               weights_column=p.weights_column, ntrees=ntrees,
                               max_depth=depth, seed=p.seed,
-                              distribution=p.distribution)
+                              distribution=p.distribution,
+                              ignored_columns=[
+                                  n for n in fr.names if n not in names
+                                  and n not in (p.response_column,
+                                                p.weights_column)])
                 sub = (DRF(DRFParameters(**common)) if algo in ("AUTO", "DRF")
                        else GBM(GBMParameters(**common)))
                 # threshold conjunctions only: no categorical set splits

@@ -30,11 +30,15 @@ what the reference writes:
   tree written twice, treatment leaves as group 0 and control leaves as
   group 1, NA right).
 
+- word2vec (the vocabulary in index order and the float32 vectors), GLRM
+  (the archetypes Y in float64 and the ``DataInfo`` spec; the scorer
+  projects rows by masked least squares) and PSVM (weights, and for the
+  Gaussian kernel the Nyström landmarks and whitening, in float64, over
+  the ``DataInfo``-expanded features).
+
 Other algorithms raise ``NotImplementedError`` as the reference's
-``export_mojo`` does (XGBoost, SVD, ANOVA GLM, ModelSelection); a DT's
-model is a DRF forest and exports as one. The reference's writers for
-word2vec, GLRM and PSVM come with those builders (ROADMAP step H); the
-reader scores their MOJOs already.
+``export_mojo`` does (XGBoost, SVD, ANOVA GLM, ModelSelection, Aggregator);
+a DT's model is a DRF forest and exports as one.
 """
 
 from __future__ import annotations
@@ -80,7 +84,9 @@ def export_mojo(model, path: str) -> str:
               "isotonic": _write_isotonic_mojo,
               "isotonicregression": _write_isotonic_mojo,
               "targetencoder": _write_targetencoder_mojo,
-              "upliftdrf": _write_uplift_mojo}.get(algo)
+              "upliftdrf": _write_uplift_mojo,
+              "word2vec": _write_word2vec_mojo, "glrm": _write_glrm_mojo,
+              "psvm": _write_psvm_mojo}.get(algo)
     if writer is None:
         raise NotImplementedError(f"MOJO export not implemented for '{algo}'")
     writer(model, path)
@@ -652,4 +658,67 @@ def _write_uplift_mojo(model, path: str):
             blob, aux = encode_tree(feat[j], thr[j], nanL[j], val[j])
             zw.write_blob(f"trees/t{gi:02d}_{j:03d}.bin", blob)
             zw.write_blob(f"trees/t{gi:02d}_{j:03d}_aux.bin", aux)
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_word2vec_mojo(model, path: str):
+    """Word2Vec MOJO (`Word2VecMojoWriter` role): the embedding matrix as
+    one float32 blob and the vocabulary, word-aligned."""
+    words = sorted(model.vocab, key=model.vocab.get)
+    vectors = _np(model.vectors, "<f4")
+    info = _common_info(model, "word2vec", "Word2Vec", "WordEmbedding", 1,
+                        [], [], mojo_version=1.00)
+    info.update({"supervised": False, "n_features": 0,
+                 "vec_size": int(vectors.shape[1]),
+                 "vocab_size": int(vectors.shape[0])})
+    zw = MojoZipWriter()
+    _write_common(zw, info, [], [])
+    zw.write_text("word2vec/words.txt",
+                  "\n".join(escape_line(w) for w in words) + "\n")
+    zw.write_blob("word2vec/vectors.bin", vectors.tobytes())
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_glrm_mojo(model, path: str):
+    """GLRM MOJO (`GlrmMojoWriter` role): the archetypes Y and the
+    ``DataInfo`` spec; the scorer projects rows onto the archetypes by
+    masked least squares."""
+    columns, domains, di_info = _datainfo_spec(model.dinfo)
+    Y = _np(model.Y, np.float64)
+    info = _common_info(model, "glrm", "Generalized Low Rank Modeling",
+                        "DimReduction", 1, columns, domains, mojo_version=1.00)
+    info.update(di_info)
+    info.update({"supervised": False, "n_features": len(columns),
+                 "k": int(Y.shape[0]), "expanded": int(Y.shape[1])})
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    zw.write_blob("glrm/archetypes.bin", Y.astype("<f8").tobytes())
+    zw.finish(path)
+
+
+# ---------------------------------------------------------------------------
+def _write_psvm_mojo(model, path: str):
+    """PSVM MOJO (`SvmMojoWriter` role): the decision function's state —
+    Nyström landmarks, whitening and weights, or the linear weights —
+    over the ``DataInfo``-expanded features."""
+    out = model.output
+    feat_cols, feat_doms, di_info = _datainfo_spec(model.dinfo)
+    columns = feat_cols + [model.params.response_column]
+    domains = feat_doms + [out.response_domain]
+    info = _common_info(model, "psvm", "PSVM", "Binomial", 2, columns,
+                        domains, mojo_version=1.00)
+    info.update(di_info)
+    info.update({"gamma": float(model.gamma), "bias": float(model.bias),
+                 "kernel": "gaussian" if model.landmarks is not None
+                 else "linear",
+                 "sv_count": int(model.sv_count)})
+    zw = MojoZipWriter()
+    _write_common(zw, info, columns, domains)
+    zw.write_blob("psvm/beta.bin", _np(model.beta, "<f8").tobytes())
+    if model.landmarks is not None:
+        zw.write_blob("psvm/landmarks.bin",
+                      _np(model.landmarks, "<f8").tobytes())
+        zw.write_blob("psvm/whiten.bin", _np(model.whiten, "<f8").tobytes())
     zw.finish(path)

@@ -253,7 +253,10 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.adaboost, h2o_tpu_torch.models.naivebayes, "
             "h2o_tpu_torch.models.target_encoder, "
             "h2o_tpu_torch.models.isotonic, h2o_tpu_torch.models.quantile, "
-            "h2o_tpu_torch.models.infogram, h2o_tpu_torch.models.segments; "
+            "h2o_tpu_torch.models.infogram, h2o_tpu_torch.models.segments, "
+            "h2o_tpu_torch.models.psvm, h2o_tpu_torch.models.glrm, "
+            "h2o_tpu_torch.models.aggregator, "
+            "h2o_tpu_torch.models.word2vec; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
