@@ -27,7 +27,9 @@ out, data in (MOJO and POJO export, the standalone MOJO scorer and
 Generic models; SVMLight, ARFF and XLSX import); and the tree engine's
 other families (Uplift DRF at four histogram channels, DT on ``Exact``
 bins, both isolation forests, AdaBoost, Naive Bayes, quantiles, isotonic
-regression, the infogram, the target encoder and segment models). In
+regression, the infogram, the target encoder and segment models); and
+the frame algebra (group-by, sort and both merge paths, the Rapids
+evaluator and its model primitives) on the imported airlines frame. In
 order:
 
 1. ``level_hist``: holds the kernel, through its flat wrapper, against its
@@ -484,7 +486,28 @@ order:
     train split's first 1,000,000 rows, every column, k = 5, Categorical
     blocks, Month's block Ordinal (``loss_by_col``), NonNegative X, the
     numerics standardized: the checks of ``glrm_higgs`` and X
-    non-negative.
+    non-negative;
+46. ``rapids_airlines`` (after ``encoders_airlines``, on the imported
+    frame): group-by over [Origin, Dest] (nrow, Distance's mean/sd/min/
+    max with NAs removed, CRSDepTime's sum with NAs poisoning): numpy's
+    groups in key order, counts, min and max exactly, mean and sd within
+    1e-5 of float64 numpy, two runs bit-equal; sort by [Origin,
+    CRSDepTime descending, Distance]: ``np.lexsort``'s permutation, twice;
+    the device merge on CRSDepTime against its distinct values (inner and
+    all_x, each right key once and twice: ~14M rows), numpy's join bit for
+    bit and twice the same; the host merge on [UniqueCarrier, Month]
+    against a table listing their levels in another order, through the
+    radix sort (its order equal to ``np.lexsort``'s on the 7M rows) and
+    equal to numpy's join; 28 evaluator expressions (their shapes,
+    checksums and walls printed, ``Session.end()`` leaving the store as
+    it was); a 5-tree GBM on the first 1M rows with
+    ``PermutationVarImp``, ``fairnessMetrics`` (UniqueCarrier) and
+    ``makeLeaderboard`` through the evaluator: 25 grouped launches;
+47. ``rapids_card_vs_cpu``: 57 evaluator expressions over a generated
+    100,000-row frame (NAs, a string, a time and an int64 column past
+    2^24) on the card and on the CPU: integers, orders, merges and
+    strings exactly, floats within 1e-6, deviations, correlation and
+    moments within 1e-5.
 
 Between phases the K/V store is cleared (``h2o.remove_all()``): what a
 phase keeps, it returns. Scratch files (CSVs, SVMLight, ARFF and XLSX
@@ -5942,6 +5965,645 @@ def phase_encoders_airlines(dev, fr) -> dict:
     return launches
 
 
+RAPIDS_GBM_ROWS = 1_000_000    # rapids_airlines: the model primitives' rows
+RAPIDS_SUB_ROWS = 100_000      # rapids_airlines: rows of the per-row host
+                               # expressions (strsplit, ddply)
+RAPIDS_CPU_ROWS = 100_000      # rapids_card_vs_cpu: the generated frame
+RAPIDS_TOL = 1e-5              # group-by mean/sd vs float64 numpy; card vs
+                               # CPU sd, var, cor, skewness, kurtosis
+RAPIDS_CPU_TOL = 1e-6          # card vs CPU: every other float result
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _bits_equal(a, b) -> bool:
+    """Two float32 host arrays bit for bit, NaN at the same rows (a NaN's
+    payload is the arithmetic's: the card's and the CPU's differ)."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    b = np.ascontiguousarray(b, dtype=np.float32)
+    na = np.isnan(a)
+    return a.shape == b.shape and np.array_equal(na, np.isnan(b)) and \
+        np.array_equal(a[~na].view(np.int32), b[~na].view(np.int32))
+
+
+def _frames_bit_equal(a, b) -> bool:
+    import torch
+
+    return a.names == b.names and all(
+        torch.equal(a.vec(n).data.view(torch.int32),
+                    b.vec(n).data.view(torch.int32)) for n in a.names)
+
+
+def _np_group_stats(keys, x):
+    """numpy's group-by of ``x`` over integer host ``keys`` (no NA): the
+    sorted distinct key rows, rows per group, and per group the valid
+    count, min, max, float64 sum, mean and centred sd (ddof 1)."""
+    comb = np.zeros(len(x), dtype=np.int64)
+    for k in keys:
+        comb = comb * (int(k.max()) + 1) + k.astype(np.int64)
+    uk, inv, rows = np.unique(comb, return_inverse=True, return_counts=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    xs = x[order].astype(np.float64)
+    ok = ~np.isnan(xs)
+    cnt = np.add.reduceat(ok.astype(np.int64), starts)
+    s = np.add.reduceat(np.where(ok, xs, 0.0), starts)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = s / cnt
+        d = np.where(ok, xs - np.repeat(mean, rows), 0.0)
+        sd = np.sqrt(np.add.reduceat(d * d, starts) / np.maximum(cnt - 1, 1))
+    sd = np.where(cnt > 0, sd, np.nan)
+    mn = np.minimum.reduceat(np.where(ok, xs, np.inf), starts)
+    mx = np.maximum.reduceat(np.where(ok, xs, -np.inf), starts)
+    na = cnt < rows
+    return dict(key=uk, rows=rows, cnt=cnt, sum=s, mean=mean, sd=sd,
+                min=np.where(cnt > 0, mn, np.nan),
+                max=np.where(cnt > 0, mx, np.nan), has_na=na)
+
+
+def _rel_close(got, want, tol: float) -> bool:
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    nan = np.isnan(want)
+    return bool(np.array_equal(np.isnan(got), nan) and (
+        np.abs(got[~nan] - want[~nan]) <= tol * np.abs(want[~nan])).all())
+
+
+def _rapids_group_by(dev, fr) -> dict:
+    from h2o_tpu_torch.rapids import group_by
+
+    n = fr.nrow
+    aggs = [("nrow", None), ("mean", "Distance", "rm"),
+            ("sd", "Distance", "rm"), ("min", "Distance", "rm"),
+            ("max", "Distance", "rm"), ("sum", "CRSDepTime", "all")]
+    out, s1 = _timed(lambda: group_by(fr, ["Origin", "Dest"], aggs))
+    again, s2 = _timed(lambda: group_by(fr, ["Origin", "Dest"], aggs))
+    _check(_frames_bit_equal(out, again), "rapids group-by: two runs differ")
+    # the host copies of the float32 columns the card aggregates (the
+    # parsed Distance also keeps an exact float64 copy, which group-by
+    # does not read, as the reference's does not)
+    o, d, dist, crs = (fr.vec(c).data[:n].cpu().numpy()
+                       for c in ("Origin", "Dest", "Distance", "CRSDepTime"))
+    want = _np_group_stats([o, d], dist)
+    cw = _np_group_stats([o, d], crs)
+    go, gd = out.vec("Origin").to_numpy(), out.vec("Dest").to_numpy()
+    width = int(d.max()) + 1
+    got_key = go.astype(np.int64) * width + gd.astype(np.int64)
+    _check(out.nrow == len(want["key"]) and bool(
+        (np.diff(got_key) > 0).all()) and np.array_equal(got_key, want["key"]),
+        "rapids group-by: groups not numpy's, sorted by key")
+    nrow = out.vec("nrow").to_numpy()
+    _check(int(nrow.sum()) == n and np.array_equal(nrow, want["rows"]),
+           "rapids group-by: counts differ from numpy's")
+    for name, key in (("min_Distance", "min"), ("max_Distance", "max")):
+        _check(_bits_equal(out.vec(name).to_numpy(),
+                           want[key].astype(np.float32)),
+               f"rapids group-by: {name} differs from numpy's")
+    for name, key in (("mean_Distance", "mean"), ("sd_Distance", "sd")):
+        _check(_rel_close(out.vec(name).to_numpy(), want[key], RAPIDS_TOL),
+               f"rapids group-by: {name} not within {RAPIDS_TOL} of "
+               "float64 numpy")
+    _check(_rel_close(out.vec("sum_CRSDepTime").to_numpy(),
+                      np.where(cw["has_na"], np.nan, cw["sum"]), RAPIDS_TOL),
+           "rapids group-by: sum_CRSDepTime ('all') differs from numpy's")
+    return dict(groups=out.nrow, wall_s=[s1, s2],
+                rows_per_s=n / min(s1, s2),
+                groups_with_na=int(cw["has_na"].sum()))
+
+
+def _rapids_sort(dev, fr) -> dict:
+    from h2o_tpu_torch.rapids import sort
+    from h2o_tpu_torch.rapids.merge import sort_permutation
+
+    n = fr.nrow
+    by, asc = ["Origin", "CRSDepTime", "Distance"], [True, False, True]
+    keys = [fr.vec(c).data[:n] for c in by]
+    perm, perm_s = _timed(lambda: sort_permutation(keys, asc))
+    perm2 = sort_permutation(keys, asc)
+    _check(bool((perm == perm2).all()), "rapids sort: two runs differ")
+    # the float32 keys the card sorts (the reference's sort reads them too)
+    host = [fr.vec(c).data[:n].cpu().numpy() for c in by]
+    canon = [np.where(np.isnan(h), -np.inf, h) for h in host]
+    canon = [c if a else -c for c, a in zip(canon, asc)]
+    want = np.lexsort(list(reversed(canon)))
+    p = perm.cpu().numpy()
+    _check(np.array_equal(p, want), "rapids sort: permutation differs "
+           "from np.lexsort's")
+    out, frame_s = _timed(lambda: sort(fr, by, asc))
+    for name in ("CRSDepTime", "Dest"):
+        _check(_bits_equal(out.vec(name).to_numpy(),
+                           fr.vec(name).to_numpy()[want]),
+               f"rapids sort: sorted {name} differs")
+    return dict(permutation_s=perm_s, frame_s=frame_s, columns=fr.ncol,
+                rows_per_s=n / frame_s)
+
+
+def _rapids_device_merge(dev, fr) -> dict:
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.rapids import merge
+
+    n = fr.nrow
+    # no column with an exact host copy (Distance has one): those joins
+    # take the host path, as the reference's do
+    left = fr.subframe(["CRSDepTime", "Origin", "Dest"])
+    crs = fr.vec("CRSDepTime").to_numpy()
+    host = {c: fr.vec(c).to_numpy() for c in left.names}
+    u = np.unique(crs[~np.isnan(crs)]).astype(np.float32)
+    R = len(u)
+    matched = ~np.isnan(crs)
+    pos = np.searchsorted(u, np.where(matched, crs, 0))
+    out = {}
+    for copies in (1, 2):
+        keys = np.tile(u, copies)
+        right = Frame.from_dict({
+            "CRSDepTime": keys, "half": keys * np.float32(0.5),
+            "slot": np.arange(copies * R, dtype=np.float32)}, device=dev)
+        for all_x in (False, True):
+            res, s = _timed(lambda: merge(left, right, ["CRSDepTime"],
+                                          all_x=all_x))
+            # numpy's join: each left row in order, its matches in the
+            # right table's stable sorted order (copy c of key i at c*R+i)
+            reps = np.where(matched, copies, 1 if all_x else 0)
+            rows = np.repeat(np.arange(n), reps)
+            within = np.arange(len(rows)) - np.repeat(
+                np.cumsum(reps) - reps, reps)
+            hit = matched[rows]
+            slot = np.where(hit, pos[rows] + within * R, -1)
+            want = {c: host[c][rows] for c in left.names}
+            want["half"] = np.where(hit, u[np.clip(slot % R, 0, R - 1)]
+                                    * np.float32(0.5), np.nan)
+            want["slot"] = np.where(hit, slot, np.nan)
+            _check(res.nrow == len(rows) and res.names == list(want),
+                   f"rapids merge x{copies} all_x={all_x}: {res.nrow} rows, "
+                   f"numpy's join has {len(rows)}")
+            for c, w in want.items():
+                _check(_bits_equal(res.vec(c).to_numpy(), w),
+                       f"rapids merge x{copies} all_x={all_x}: {c} differs")
+            again = merge(left, right, ["CRSDepTime"], all_x=all_x)
+            _check(_frames_bit_equal(res, again),
+                   f"rapids merge x{copies} all_x={all_x}: two runs differ")
+            out[f"x{copies}_all_x_{all_x}"] = dict(
+                rows=res.nrow, right_rows=copies * R, wall_s=s,
+                rows_per_s=res.nrow / s)
+            del res, again
+    return out
+
+
+def _rapids_host_merge(dev, fr) -> dict:
+    from h2o_tpu_torch import Frame, Vec
+    from h2o_tpu_torch.backend import native
+    from h2o_tpu_torch.rapids import merge
+
+    n = fr.nrow
+    car, mon = fr.vec("UniqueCarrier"), fr.vec("Month")
+    ldom_c, ldom_m = list(reversed(car.domain)), list(reversed(mon.domain))
+    rng = np.random.default_rng(17)
+    combos = np.array([(i, j) for i in range(len(ldom_c))
+                       for j in range(len(ldom_m))], dtype=np.float32)
+    combos = combos[rng.permutation(len(combos))]
+    rate = (np.arange(len(combos)) * 0.5).astype(np.float32)
+    small = Frame(["UniqueCarrier", "Month", "rate"], [
+        Vec.from_numpy(combos[:, 0], type="enum", domain=ldom_c, device=dev),
+        Vec.from_numpy(combos[:, 1], type="enum", domain=ldom_m, device=dev),
+        Vec.from_numpy(rate, device=dev)])
+    big = fr.subframe(["UniqueCarrier", "Month", "Distance", "CRSDepTime"])
+    res, s = _timed(lambda: merge(small, big, ["UniqueCarrier", "Month"]))
+    # numpy's join: the big table's codes in the small table's level
+    # order, its rows in stable key order, each small row's block in turn
+    cmap = np.array([ldom_c.index(l) for l in car.domain], dtype=np.int64)
+    mmap = np.array([ldom_m.index(l) for l in mon.domain], dtype=np.int64)
+    rc = cmap[car.to_numpy().astype(np.int64)]
+    rm = mmap[mon.to_numpy().astype(np.int64)]
+    t0 = time.perf_counter()
+    r_order = native.radix_lexsort([rc, rm])
+    radix_s = time.perf_counter() - t0
+    want_order = np.lexsort((rm, rc))
+    _check(n >= native.RADIX_MIN_ROWS and np.array_equal(r_order, want_order),
+           "rapids host merge: the radix order differs from np.lexsort's")
+    comb = (rc * len(ldom_m) + rm)[want_order]
+    lkey = combos[:, 0].astype(np.int64) * len(ldom_m) + combos[:, 1]
+    lo = np.searchsorted(comb, lkey, "left")
+    hi = np.searchsorted(comb, lkey, "right")
+    r_pos = np.concatenate([want_order[a:b] for a, b in zip(lo, hi)])
+    l_idx = np.repeat(np.arange(len(combos)), hi - lo)
+    want = {"UniqueCarrier": combos[l_idx, 0], "Month": combos[l_idx, 1],
+            "rate": rate[l_idx]}
+    for c in ("Distance", "CRSDepTime"):
+        want[c] = fr.vec(c).to_numpy()[r_pos]
+    _check(res.nrow == len(r_pos) == n and res.names == list(want),
+           f"rapids host merge: {res.nrow} rows, numpy's join {len(r_pos)}")
+    _check(res.vec("UniqueCarrier").domain == ldom_c
+           and res.vec("Month").domain == ldom_m,
+           "rapids host merge: domains are not the left table's")
+    for c, w in want.items():
+        _check(_bits_equal(res.vec(c).to_numpy(), w),
+               f"rapids host merge: {c} differs from numpy's join")
+    return dict(rows=res.nrow, left_rows=len(combos), wall_s=s,
+                rows_per_s=res.nrow / s, radix_s=radix_s)
+
+
+def _checksum(x):
+    """A result's shape and a checksum: per numeric column the float64 sum
+    of its finite values, per string column the characters."""
+    from h2o_tpu_torch import Frame, Vec
+
+    if isinstance(x, Vec):
+        x = Frame(["C1"], [x])
+    if isinstance(x, Frame):
+        sums = []
+        for v in x.vecs:
+            h = v.to_numpy()
+            if h.dtype == object:
+                sums.append(float(sum(len(str(s)) for s in h
+                                      if s is not None)))
+            else:
+                h = h.astype(np.float64)
+                sums.append(float(h[np.isfinite(h)].sum()))
+        return [x.nrow, x.ncol], sums
+    if isinstance(x, dict):
+        return {k: _checksum(v) for k, v in x.items()}
+    return None, x
+
+
+def _rapids_evaluator(dev, fr, right) -> dict:
+    from h2o_tpu_torch import STORE
+    from h2o_tpu_torch.rapids import Rapids, Session
+
+    n = fr.nrow
+    STORE.put("air", fr)
+    STORE.put("air_right", right)
+    STORE.put("air_sub", fr.take(np.arange(RAPIDS_SUB_ROWS)))
+    before = set(STORE.keys())
+    ix = {c: i for i, c in enumerate(fr.names)}
+    exprs = [
+        f"(GB air [{ix['Origin']} {ix['Dest']}] 'nrow' 0 'all' 'mean' "
+        f"{ix['Distance']} 'rm' 'sd' {ix['CRSDepTime']} 'rm')",
+        f"(sort air [{ix['UniqueCarrier']} {ix['CRSDepTime']}] [1 0])",
+        "(merge (cols air ['CRSDepTime' 'Origin']) air_right false false "
+        "[0] [0] 'auto')",
+        "(cut (cols air 'Distance') [0 250 500 1000 2000 100000] _ false "
+        "true 3)",
+        "(quantile (cols air ['Distance' 'CRSDepTime']) "
+        "[0.01 0.25 0.5 0.75 0.99] 'interpolate' _)",
+        "(cor (cols air ['Distance' 'CRSDepTime']) (cols air ['Distance' "
+        "'CRSDepTime']) 'everything' 'Pearson')",
+        "(tmp= air_imp (cols air ['Distance' 'CRSDepTime']))",
+        "(h2o.impute air_imp 0 'mean' 'interpolate' [] _ _)",
+        "(h2o.impute air_imp 1 'median' 'interpolate' [] _ _)",
+        "(scale (cols air ['Distance' 'CRSDepTime']) true true)",
+        "(table (cols air 'UniqueCarrier'))",
+        "(unique (cols air 'Origin'))",
+        "(ifelse (> (cols air 'Distance') 1000) 1 0)",
+        "(cumsum (is.na (cols air 'Distance')))",
+        "(kfold_column (cols air 'Distance') 5 42)",
+        "(strsplit (as.character (cols air_sub 'Origin')) '0')",
+        "(:= (cols air ['Distance' 'CRSDepTime']) 0 [0] [0:1000])",
+        "(apply (cols air ['Distance' 'CRSDepTime']) 2 {x . (mean x true)})",
+        "(ddply (cols air_sub ['UniqueCarrier' 'Distance']) [0] "
+        "{x . (mean (cols x 'Distance') true)})",
+        "(mean (cols air 'Distance') true)",
+        "(sd (cols air 'Distance') true)",
+        "(nrow (rows air (> (cols air 'Distance') 2000)))",
+        "(toupper (cols air 'Origin'))",
+        "(hist (cols air 'Distance') 20)",
+        "(which.max (cols air ['Distance' 'CRSDepTime']) true 0)",
+        "(sum (* (cols air 'Distance') 2) true)",
+        "(cbind (cols air 'Distance') (log1p (cols air 'Distance')))",
+        "(rm air_imp)",
+    ]
+    R = Rapids(Session(device=dev))
+    results, rows = {}, []
+    for e in exprs:
+        res, s = _timed(lambda: R.exec(e))
+        shape, ck = _checksum(res)
+        rows.append(dict(expr=e, shape=shape, checksum=ck, wall_s=s))
+        results[e] = res
+    R.session.end()
+    _check(set(STORE.keys()) == before,
+           "rapids evaluator: Session.end() left the store changed")
+    dist = fr.vec("Distance").to_numpy().astype(np.float64)
+    ok = ~np.isnan(dist)
+    gb = results[exprs[0]]
+    _check(int(gb.vec("nrow").to_numpy().sum()) == n,
+           "rapids evaluator: GB counts do not sum to nrow")
+    _check(abs(results["(mean (cols air 'Distance') true)"]
+               - dist[ok].mean()) <= RAPIDS_TOL * dist[ok].mean(),
+           "rapids evaluator: mean differs from numpy's")
+    _check(results["(nrow (rows air (> (cols air 'Distance') 2000)))"]
+           == float((dist[ok] > 2000).sum()),
+           "rapids evaluator: the row filter's count differs from numpy's")
+    tbl = results["(table (cols air 'UniqueCarrier'))"]
+    _check(int(tbl.vec("count").to_numpy().sum()) == n,
+           "rapids evaluator: table counts do not sum to nrow")
+    cut = results[exprs[3]].to_numpy()
+    want_cut = np.searchsorted([0, 250, 500, 1000, 2000, 100000],
+                               dist, side="left") - 1.0
+    _check(np.array_equal(np.where(ok, cut, -9), np.where(ok, want_cut, -9)),
+           "rapids evaluator: cut codes differ from numpy's")
+    q = results[exprs[4]].vec("DistanceQuantiles").to_numpy()
+    _check(np.allclose(q, np.quantile(dist[ok].astype(np.float32),
+                                      [0.01, 0.25, 0.5, 0.75, 0.99]),
+                       rtol=1e-6),
+           "rapids evaluator: quantiles differ from numpy's")
+    fold = results[exprs[14]].to_numpy()
+    _check(np.array_equal(np.bincount(fold.astype(np.int64)),
+                          np.bincount(np.arange(n) % 5)),
+           "rapids evaluator: kfold_column's folds are not balanced")
+    srt = results[exprs[1]]
+    car = srt.vec("UniqueCarrier").to_numpy()
+    _check(bool((np.diff(car) >= 0).all()),
+           "rapids evaluator: sort output not sorted")
+    mg = results[exprs[2]]
+    _check(mg.nrow == int((~np.isnan(fr.vec("CRSDepTime").to_numpy())).sum()),
+           "rapids evaluator: merge rows differ from the non-NA keys")
+    return dict(expressions=len(exprs), per_expr=rows,
+                wall_s=sum(r["wall_s"] for r in rows))
+
+
+def _rapids_models(dev, fr) -> dict:
+    from h2o_tpu_torch import GBM, STORE, GBMParameters
+    from h2o_tpu_torch.rapids import Rapids, Session
+
+    sub = fr.take(np.arange(RAPIDS_GBM_ROWS))
+    STORE.put("air_1m", sub)
+    _reset_counts()
+    gbm, train_s = _timed(lambda: GBM(GBMParameters(
+        training_frame=sub, response_column="IsDepDelayed", ntrees=5,
+        max_depth=5, seed=42)).train_model())
+    STORE.put(gbm.key, gbm)
+    R = Rapids(Session(device=dev))
+    pvi, pvi_s = _timed(lambda: R.exec(
+        f"(PermutationVarImp {gbm.key} air_1m 'AUTO' 1 42)"))
+    fair, fair_s = _timed(lambda: R.exec(
+        f"(fairnessMetrics {gbm.key} air_1m ['UniqueCarrier'] [] 'YES')"))
+    lb, lb_s = _timed(lambda: R.exec(f"(makeLeaderboard ['{gbm.key}'])"))
+    R.session.end()
+    c = _counts()
+    _check(c == dict(gram=0, flat=0, grouped=25),
+           f"rapids model primitives: launches {c}, want 25 grouped")
+    _check(pvi.nrow == len(gbm.output.names) and all(
+        np.isfinite(pvi.vec(i).to_numpy()).all() for i in range(1, pvi.ncol)
+        if pvi.vec(i).data is not None),
+        "rapids PermutationVarImp: not one finite row per feature")
+    ov = fair["overview"]
+    total = ov.vec("total").to_numpy()
+    _check(ov.nrow == 22 and int(total.sum()) == RAPIDS_GBM_ROWS,
+           f"rapids fairnessMetrics: {ov.nrow} groups, {total.sum()} rows")
+    ref = int(np.argmax(total))
+    _check(all(abs(ov.vec(c).to_numpy()[ref] - 1.0) < 1e-6
+               for c in ov.names if c.startswith("AIR_")
+               and np.isfinite(ov.vec(c).to_numpy()[ref])),
+           "rapids fairnessMetrics: the reference group's AIRs are not 1")
+    auc = gbm.output.training_metrics.auc
+    _check(lb.nrow == 1 and abs(lb.vec("auc").to_numpy()[0] - auc) < 1e-6,
+           "rapids makeLeaderboard: not the model's training AUC")
+    return dict(rows=RAPIDS_GBM_ROWS, train_s=train_s, auc=auc, launches=c,
+                pvi_s=pvi_s, fairness_s=fair_s, fairness_groups=ov.nrow,
+                leaderboard_s=lb_s)
+
+
+def phase_rapids_airlines(dev, fr) -> dict:
+    """Frame algebra on the 7,009,728-row imported airlines frame: group-by
+    over [Origin, Dest] (numpy's groups and counts, min and max exactly,
+    mean and sd within 1e-5 of float64 numpy, two runs bit-equal), sort by
+    [Origin, CRSDepTime desc, Distance] (np.lexsort's permutation), the
+    device merge on CRSDepTime (inner and all_x, right keys once and
+    twice: numpy's join bit for bit, twice the same), the host merge on
+    [UniqueCarrier, Month] against a table with its levels in another
+    order (through the radix sort; numpy's join), 28 evaluator
+    expressions with their shapes and checksums, and the model primitives
+    on a 5-tree GBM over the first 1M rows (25 grouped launches). Returns
+    the launches by wrapper."""
+    from h2o_tpu_torch import Frame
+
+    out = {"rows": fr.nrow}
+    steps = {}
+    for name, fn in (("group_by", _rapids_group_by), ("sort", _rapids_sort),
+                     ("device_merge", _rapids_device_merge),
+                     ("host_merge", _rapids_host_merge)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, fr)
+        steps[name] = time.perf_counter() - t0
+    crs = fr.vec("CRSDepTime").to_numpy()
+    u = np.unique(crs[~np.isnan(crs)]).astype(np.float32)
+    right = Frame.from_dict({"CRSDepTime": u, "hour": np.floor(u / 100)},
+                            device=dev)
+    t0 = time.perf_counter()
+    out["evaluator"] = _rapids_evaluator(dev, fr, right)
+    steps["evaluator"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["models"] = _rapids_models(dev, fr)
+    steps["models"] = time.perf_counter() - t0
+    out["step_s"] = steps   # each step with its numpy checks
+    print("rapids_airlines", json.dumps(out), flush=True)
+    return {"flat": out["models"]["launches"]["flat"],
+            "grouped": out["models"]["launches"]["grouped"]}
+
+
+def _rapids_cpu_cols(n: int, seed: int = 2016) -> dict:
+    rng = np.random.default_rng(seed)
+    a = (rng.normal(size=n) * 3).astype(np.float32)
+    a[::13] = np.nan
+    b = rng.integers(-5, 6, n).astype(np.float32)
+    b[::17] = np.nan
+    vocab = [f"w{i:02d} {'ab'[i % 2]}x{i % 7}" for i in range(50)]
+    s = np.array([None if i % 23 == 5 else vocab[j]
+                  for i, j in enumerate(rng.integers(0, 50, n))],
+                 dtype=object)
+    t = 1.2e12 + rng.integers(0, 10 * 365 * 86_400_000, n).astype(np.float64)
+    t[::29] = np.nan
+    return {"a": a, "b": b, "pos": (rng.random(n) * 4 + 0.1).astype(
+                np.float32),
+            "g": rng.integers(0, 50, n).astype(np.float32),
+            "c": (rng.integers(0, 10, n).astype(np.float32),
+                  [f"L{i}" for i in range(10)]),
+            "s": s, "t": t,
+            "big": (2 ** 24 + rng.integers(0, 10 ** 6, n)).astype(np.int64),
+            "e": rng.exponential(size=n).astype(np.float32)}
+
+
+def _rapids_cpu_frames(device, n: int):
+    from h2o_tpu_torch import Frame, Vec
+
+    fr = Frame()
+    for name, col in _rapids_cpu_cols(n).items():
+        if isinstance(col, tuple):
+            fr.add(name, Vec.from_numpy(col[0], type="enum", domain=col[1],
+                                        device=device))
+        else:
+            fr.add(name, Vec.from_numpy(col, device=device))
+    rng = np.random.default_rng(7)
+    right = Frame.from_dict({"g": np.arange(0, 60, dtype=np.float32),
+                             "w": rng.normal(size=60).astype(np.float32)},
+                            device=device)
+    right2 = Frame()
+    right2.add("c", Vec.from_numpy(
+        np.arange(12, dtype=np.float32) % 12, type="enum",
+        domain=[f"L{i}" for i in (3, 1, 4, 0, 9, 2, 6, 5, 11, 8, 7, 10)],
+        device=device))
+    right2.add("v", Vec.from_numpy(np.arange(12, dtype=np.float32),
+                                   device=device))
+    return {"rc_f": fr, "rc_r": right, "rc_r2": right2}
+
+
+#: card vs CPU expressions: "x" exact, "f" within RAPIDS_CPU_TOL, "m"
+#: (deviations, correlation, moments) within RAPIDS_TOL
+RAPIDS_CPU_EXPRS = [
+    ("(+ (cols rc_f 'a') (cols rc_f 'b'))", "x"),
+    ("(/ (cols rc_f 'a') (cols rc_f 'pos'))", "x"),
+    ("(%% (cols rc_f 'b') 3)", "x"),
+    ("(intDiv (cols rc_f 'a') (cols rc_f 'b'))", "x"),
+    ("(&& (< (cols rc_f 'a') 0) (cols rc_f 'b'))", "x"),
+    ("(* (cols rc_f 'big') 3)", "x"),
+    ("(^ (cols rc_f 'pos') 1.5)", "f"),
+    ("(log (cols rc_f 'pos'))", "f"), ("(exp (cols rc_f 'a'))", "f"),
+    ("(sqrt (cols rc_f 'pos'))", "f"), ("(tanh (cols rc_f 'a'))", "f"),
+    ("(sign (cols rc_f 'a'))", "x"), ("(round (cols rc_f 'a') 2)", "x"),
+    ("(signif (cols rc_f 'pos') 3)", "f"),
+    ("(is.na (cols rc_f ['a' 's']))", "x"),
+    ("(ifelse (> (cols rc_f 'a') 0) (cols rc_f 'a') (cols rc_f 'b'))", "x"),
+    ("(cumsum (cols rc_f 'b'))", "x"), ("(cummax (cols rc_f 'a'))", "x"),
+    ("(sum (cols rc_f 'pos') true)", "f"),
+    ("(mean (cols rc_f 'pos') true)", "f"),
+    ("(sd (cols rc_f 'pos') true)", "m"), ("(var (cols rc_f 'a') true)", "m"),
+    ("(median (cols rc_f 'a') true)", "f"),
+    ("(min (cols rc_f 'a') true)", "x"), ("(max (cols rc_f 'a') true)", "x"),
+    ("(GB rc_f [3] 'nrow' 0 'all' 'min' 0 'rm' 'max' 2 'rm')", "x"),
+    ("(GB rc_f [3 4] 'sum' 2 'rm' 'mean' 0 'rm')", "f"),
+    ("(GB rc_f [4] 'sd' 0 'rm' 'var' 2 'rm')", "m"),
+    ("(sort rc_f [3 0] [1 0])", "x"),
+    ("(sort rc_f [4 1 2] [0 1 1])", "x"),
+    ("(merge (cols rc_f ['g' 'a' 'pos']) rc_r false false [0] [0] 'auto')",
+     "x"),
+    ("(merge (cols rc_f ['g' 'a']) rc_r true false [0] [0] 'auto')", "x"),
+    ("(merge (cols rc_f ['c' 'g' 's']) rc_r2 true false [0] [0] 'auto')",
+     "x"),
+    ("(toupper (cols rc_f 's'))", "x"), ("(nchar (cols rc_f 's'))", "x"),
+    ("(grep (cols rc_f 's') 'ax' false false true)", "x"),
+    ("(strsplit (cols rc_f 's') ' ')", "x"),
+    ("(year (cols rc_f 't'))", "x"), ("(hour (cols rc_f 't'))", "x"),
+    ("(dayOfWeek (cols rc_f 't'))", "x"),
+    ("(quantile (cols rc_f ['a' 'pos' 'big']) [0.1 0.5 0.9] 'interpolate' "
+     "_)", "x"),
+    ("(cut (cols rc_f 'a') [-10 -1 0 1 10] _ false true 3)", "x"),
+    ("(scale (cols rc_f ['a' 'pos']) true true)", "f"),
+    ("(cor (cols rc_f ['a' 'pos']) (cols rc_f ['b' 'pos']) 'everything' "
+     "'Pearson')", "m"),
+    ("(skewness (cols rc_f 'e') true)", "m"),
+    ("(kurtosis (cols rc_f 'e') true)", "m"),
+    ("(h2o.fillna (cols rc_f ['a' 'b']) 'forward' 0 2)", "x"),
+    ("(which (> (cols rc_f 'a') 2))", "x"),
+    ("(difflag1 (cols rc_f 'pos'))", "x"),
+    ("(table (cols rc_f 'c'))", "x"), ("(unique (cols rc_f 'g'))", "x"),
+    ("(hist (cols rc_f 'pos') 10)", "x"),
+    ("(kfold_column (cols rc_f 'a') 5 42)", "x"),
+    ("(rank_within_groupby (cols rc_f ['g' 'a']) ['g'] ['a'] [1] 'r' false)",
+     "x"),
+    ("(topn rc_f 0 1 0)", "x"),
+    ("(apply (cols rc_f ['a' 'pos']) 2 {x . (sd x true)})", "m"),
+    ("(ddply (cols rc_f ['c' 'pos']) [0] {x . (mean (cols x 'pos') true)})",
+     "f"),
+]
+
+
+def _host_result(x):
+    from h2o_tpu_torch import Frame, Vec
+
+    if isinstance(x, Vec):
+        x = Frame(["C1"], [x])
+    if isinstance(x, Frame):
+        return ("frame", x.names, [(v.type, v.domain, v.to_numpy(),
+                                    None if v.data is None
+                                    else v.data[:v.nrow].cpu().numpy())
+                                   for v in x.vecs])
+    if isinstance(x, dict):
+        return {k: _host_result(v) for k, v in x.items()}
+    return x
+
+
+def _same_result(a, b, tol: str, what: str) -> None:
+    """A card result against the CPU's: structure, types, domains and
+    strings exactly; numbers exactly ("x") or within RAPIDS_CPU_TOL
+    ("f") or RAPIDS_TOL ("m") of each column's largest magnitude."""
+    rtol = {"x": 0.0, "f": RAPIDS_CPU_TOL, "m": RAPIDS_TOL}[tol]
+    if isinstance(a, tuple) and a and a[0] == "frame":
+        _check(a[1] == b[1] and len(a[2]) == len(b[2]),
+               f"rapids card vs CPU: {what}: columns {a[1]} vs {b[1]}")
+        for name, ca, cb in zip(a[1], a[2], b[2]):
+            _check(ca[0] == cb[0] and ca[1] == cb[1],
+                   f"rapids card vs CPU: {what}[{name}]: type or domain")
+            if ca[2].dtype == object:
+                _check(list(ca[2]) == list(cb[2]),
+                       f"rapids card vs CPU: {what}[{name}] strings differ")
+            elif rtol == 0:
+                _check(_bits_equal(ca[3], cb[3]) and np.array_equal(
+                    ca[2], cb[2], equal_nan=True),
+                    f"rapids card vs CPU: {what}[{name}] not bit-equal")
+            else:
+                x = ca[2].astype(np.float64)
+                y = cb[2].astype(np.float64)
+                scale = np.nanmax(np.abs(y)) if np.isfinite(y).any() else 0
+                _check(np.array_equal(np.isnan(x), np.isnan(y)) and bool(
+                    (np.abs(x - y)[~np.isnan(y)]
+                     <= rtol * np.maximum(np.abs(y[~np.isnan(y)]),
+                                          1e-3 * scale)).all()),
+                    f"rapids card vs CPU: {what}[{name}] beyond {rtol}")
+        return
+    if isinstance(a, dict):
+        for k in a:
+            _same_result(a[k], b[k], tol, f"{what}[{k}]")
+        return
+    if isinstance(a, list):
+        _check(len(a) == len(b), f"rapids card vs CPU: {what}: lengths")
+        for i, (p, q) in enumerate(zip(a, b)):
+            _same_result(p, q, tol, f"{what}[{i}]")
+        return
+    if isinstance(a, (bool, str)) or a is None:
+        _check(a == b, f"rapids card vs CPU: {what}: {a} vs {b}")
+        return
+    x, y = float(a), float(b)
+    _check((np.isnan(x) and np.isnan(y)) or abs(x - y) <= rtol * abs(y),
+           f"rapids card vs CPU: {what}: {x} vs {y}")
+
+
+def phase_rapids_card_vs_cpu(dev) -> dict:
+    """The evaluator's expressions over a generated 100,000-row frame (NAs,
+    a string, a time and an int64 column past 2^24) on the card and with
+    ``device="cpu"``: integers, orders, merges and strings exactly, float
+    results within 1e-6 relative, deviations, correlation and moments
+    within 1e-5."""
+    from h2o_tpu_torch import STORE
+    from h2o_tpu_torch.rapids import Rapids, Session
+
+    runs = {}
+    for where in (dev, "cpu"):
+        frames = _rapids_cpu_frames(where, RAPIDS_CPU_ROWS)
+        for k, v in frames.items():
+            STORE.put(k, v)
+        R = Rapids(Session(device=where))
+        t0 = time.perf_counter()
+        runs[str(where)] = [_host_result(R.exec(e))
+                            for e, _ in RAPIDS_CPU_EXPRS]
+        runs[f"{where}_s"] = time.perf_counter() - t0
+        R.session.end()
+        for k in frames:
+            STORE.remove(k)
+    for (e, tol), a, b in zip(RAPIDS_CPU_EXPRS, runs[str(dev)], runs["cpu"]):
+        _same_result(a, b, tol, e)
+    out = dict(rows=RAPIDS_CPU_ROWS, expressions=len(RAPIDS_CPU_EXPRS),
+               card_s=runs[f"{dev}_s"], cpu_s=runs["cpu_s"])
+    print("rapids_card_vs_cpu", json.dumps(out), flush=True)
+    return out
+
+
 def _same_tree_arrays(a: dict, b: dict, exact, close, what: str) -> None:
     """Forest arrays of the card and the CPU: ``exact`` keys equal, ``close``
     keys within ``FAMILIES_TOL`` relative."""
@@ -6732,6 +7394,11 @@ def main() -> int:
     parser._csv_library()
     print(f"csv tokenizer build: {time.perf_counter() - t0:.3f} s",
           flush=True)
+    # the host radix sort of the merge's host path, built the same way
+    from h2o_tpu_torch.backend import native
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"radix sort build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     from h2o_tpu_torch import STORE
 
@@ -6836,6 +7503,9 @@ def main() -> int:
                        lambda d: phase_compress_airlines(d, imported))
     enc_launches = run("encoders_airlines",
                        lambda d: phase_encoders_airlines(d, imported))
+    rapids_launches = run("rapids_airlines",
+                          lambda d: phase_rapids_airlines(d, imported))
+    run("rapids_card_vs_cpu", phase_rapids_card_vs_cpu)
     train, valid, calib = split_frame(imported, ratios=[0.7, 0.15], seed=42)
     del imported
     cv_gbm_launches, hist_at_path = run(
@@ -6937,6 +7607,7 @@ def main() -> int:
     for path, counts in (("encoding_airlines", enc["launches"]),
                          ("model_surface_card_vs_cpu", surface_launches),
                          ("encoders_airlines", enc_launches),
+                         ("rapids_airlines", rapids_launches),
                          ("families_card_vs_cpu", fam_cpu_launches)):
         paths["level_hist"][path] = counts["flat"]
         paths["level_hist_grouped"][path] = counts["grouped"]

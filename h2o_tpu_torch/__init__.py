@@ -65,7 +65,11 @@ iteration), ``GLRM`` (every loss and regularizer, the three inits),
 ``Aggregator`` (the greedy exemplar pass and its radius search) and
 ``Word2Vec`` (skip-gram with negative sampling, deterministic scatter-adds
 on the card), with the PSVM, GLRM and word2vec MOJO writers. Every builder
-takes ``offset_column`` as the reference's does.
+takes ``offset_column`` as the reference's does. Frame algebra:
+``rapids`` (element-wise ops, reducers, group-by, sort, both merge paths,
+the mungers, strings and advanced math, fairness metrics, and the Rapids
+Lisp evaluator with the reference's 195 primitives; the merge's host path
+sorts with ``backend/native.py``'s radix sort, ``csrc/radix.cpp``).
 
 State that outlives a training process: the K/V store (``STORE``) that
 models and frames register in, jobs on worker threads
@@ -135,6 +139,7 @@ from .models.glrm import GLRM, GLRMModel, GLRMParameters
 from .models.psvm import PSVM, SVMModel, SVMParameters
 from .models.word2vec import Word2Vec, Word2VecModel, Word2VecParameters
 from .mojo import MojoModel
+from . import rapids
 
 __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "GBM", "GBMModel", "GBMParameters", "DRF", "DRFModel",
@@ -169,4 +174,4 @@ __all__ = ["Frame", "Vec", "import_file", "ParseSetup", "split_frame",
            "SVMModel", "SVMParameters", "GLRM", "GLRMModel",
            "GLRMParameters", "Aggregator", "AggregatorModel",
            "AggregatorParameters", "Word2Vec", "Word2VecModel",
-           "Word2VecParameters"]
+           "Word2VecParameters", "rapids"]

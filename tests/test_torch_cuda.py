@@ -1230,3 +1230,81 @@ def test_isolation_forest_on_the_card_matches_the_cpu(dev):
         np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-6)
     assert (hist.LAUNCHES, hist.GROUPED_LAUNCHES,
             gram.GRAM_LAUNCHES) == before
+
+
+def _rapids_frames(dev, n=200_003, seed=17):
+    """The same columns on the card and on the CPU: two keys (one with
+    NAs, +-0 and +-inf), a float column with NAs, a categorical."""
+    from h2o_tpu_torch import Frame, Vec
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-50, 50, n).astype(np.float32)
+    k[rng.random(n) < 0.03] = np.nan
+    k[rng.integers(0, n, 200)] = np.array([0.0, -0.0, np.inf, -np.inf],
+                                          np.float32)[rng.integers(0, 4, 200)]
+    x = (rng.normal(size=n) * 100 + 700).astype(np.float32)
+    x[::37] = np.nan
+    c = rng.integers(0, 30, n).astype(np.float32)
+    out = []
+    for d in (dev, "cpu"):
+        fr = Frame.from_dict({"k": k, "x": x}, device=d)
+        fr.add("c", Vec.from_numpy(c, type="enum",
+                                   domain=[f"L{i}" for i in range(30)],
+                                   device=d))
+        out.append(fr)
+    return out
+
+
+def test_group_by_on_the_card_is_bit_equal_twice_and_matches_the_cpu(dev):
+    """Group-by on the card twice: the same bits (no float atomics: a
+    stable sort by group id, then fixed-order segment reductions); and
+    the CPU's group-by: keys and counts exactly, min and max exactly,
+    sums, means and deviations within 1e-6 relative (float64 sums of the
+    same float32 values, in the CPU's and the card's segment orders)."""
+    from h2o_tpu_torch.rapids import group_by
+
+    card, cpu = _rapids_frames(dev)
+    aggs = [("nrow", None), ("sum", "x", "rm"), ("mean", "x", "rm"),
+            ("sd", "x", "rm"), ("min", "x", "rm"), ("max", "x", "all")]
+    a = group_by(card, ["c", "k"], aggs)
+    b = group_by(card, ["c", "k"], aggs)
+    h = group_by(cpu, ["c", "k"], aggs)
+    assert a.vec("nrow").device.type == "cuda"
+    for name in a.names:
+        assert torch.equal(a.vec(name).data.view(torch.int32),
+                           b.vec(name).data.view(torch.int32)), name
+        got, want = a.vec(name).to_numpy(), h.vec(name).to_numpy()
+        if name in ("c", "k", "nrow", "min_x", "max_x"):
+            assert np.array_equal(got, want, equal_nan=True), name
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9,
+                                       err_msg=name)
+
+
+def test_sort_and_merge_on_the_card_equal_the_cpu(dev):
+    """Sort (ties, NAs, +-0, +-inf, descending keys) and the device merge
+    (duplicate right keys, NA keys, all_x) on the card: the CPU's rows in
+    the CPU's order, bit for bit, and the same twice."""
+    from h2o_tpu_torch import Frame
+    from h2o_tpu_torch.rapids import merge, sort
+
+    card, cpu = _rapids_frames(dev)
+    for by, asc in ((["k"], [True]), (["c", "k", "x"], [True, False, True]),
+                    (["k", "x"], [False, False])):
+        a, b = sort(card, by, asc), sort(cpu, by, asc)
+        for name in a.names:
+            assert torch.equal(a.vec(name).data.cpu().view(torch.int32),
+                               b.vec(name).data.view(torch.int32)), (by, name)
+    rng = np.random.default_rng(4)
+    rk = np.repeat(np.arange(-60, 60, dtype=np.float32), 2)
+    rk[::17] = np.nan
+    payload = rng.normal(size=rk.shape[0]).astype(np.float32)
+    for all_x in (False, True):
+        outs = []
+        for fr, d in ((card, dev), (card, dev), (cpu, "cpu")):
+            right = Frame.from_dict({"k": rk, "w": payload}, device=d)
+            outs.append(merge(fr, right, ["k"], all_x=all_x))
+        for name in outs[0].names:
+            bits = [o.vec(name).data.cpu().view(torch.int32) for o in outs]
+            assert torch.equal(bits[0], bits[1]) and \
+                torch.equal(bits[0], bits[2]), (all_x, name)

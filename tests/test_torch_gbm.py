@@ -256,7 +256,12 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
             "h2o_tpu_torch.models.infogram, h2o_tpu_torch.models.segments, "
             "h2o_tpu_torch.models.psvm, h2o_tpu_torch.models.glrm, "
             "h2o_tpu_torch.models.aggregator, "
-            "h2o_tpu_torch.models.word2vec; "
+            "h2o_tpu_torch.models.word2vec, h2o_tpu_torch.backend.native, "
+            "h2o_tpu_torch.rapids, h2o_tpu_torch.rapids.ops, "
+            "h2o_tpu_torch.rapids.groupby, h2o_tpu_torch.rapids.merge, "
+            "h2o_tpu_torch.rapids.mungers, h2o_tpu_torch.rapids.strings, "
+            "h2o_tpu_torch.rapids.advmath, h2o_tpu_torch.rapids.fairness, "
+            "h2o_tpu_torch.rapids.exec; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'h2o_tpu', 'optax')); print(bad); "
             "sys.exit(1 if bad else 0)")
